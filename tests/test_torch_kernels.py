@@ -1,0 +1,328 @@
+"""The PyTorch port's kernel modules against the JAX package, on the CPU.
+
+On CPU tensors every kernel wrapper of ``kolibrie_tpu_torch.ops.kernels``
+runs its plain PyTorch version; the JAX entries run their Pallas kernels
+in interpret mode (called directly, as ``test_pallas_kernels.py`` does).
+Inputs are made from seeds with numpy and fed to both; results must be
+exactly equal — indices, masks and counts are integers, so there is no
+tolerance.  The CUDA kernels themselves are held against these plain
+versions on the card by ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from kolibrie_tpu.ops import device_join as jdj
+from kolibrie_tpu.ops import pallas_kernels as jpk
+from kolibrie_tpu.ops import wcoj as jwcoj
+from kolibrie_tpu.ops.jax_compat import enable_x64
+from kolibrie_tpu_torch.backend import _LPAD, _RPAD, key1
+from kolibrie_tpu_torch.ops import device_join as tdj
+from kolibrie_tpu_torch.ops import kernels as tk
+from kolibrie_tpu_torch.ops import wcoj as twcoj
+
+SENT = 0xFFFFFFFF
+U64_LPAD = np.uint64(0xFFFFFFFFFFFFFFFE)
+U64_RPAD = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def t64(x) -> torch.Tensor:
+    """numpy u32/int column -> the port's int64 carrier tensor."""
+    return torch.from_numpy(np.asarray(x).astype(np.int64))
+
+
+def carrier(u64: np.ndarray) -> torch.Tensor:
+    """numpy u64 keys -> the port's int64 key carriers."""
+    u = np.asarray(u64, np.uint64) ^ np.uint64(1 << 63)
+    return torch.from_numpy(u.view(np.int64).copy())
+
+
+def assert_join_equal(jout, tout):
+    jli, jri, jv, jtot = (np.asarray(x) for x in jout)
+    tli, tri, tv, ttot = tout
+    assert int(jtot) == int(ttot)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(tli.numpy(), jli.astype(np.int64))
+    np.testing.assert_array_equal(tri.numpy(), jri.astype(np.int64))
+
+
+# ------------------------------------------------------------ merge join
+
+
+def _case(name):
+    rng = np.random.default_rng(MERGE_CASES.index(name))
+    lvalid = rvalid = None
+    if name == "nm_gaps":
+        lk = rng.integers(0, 60, 40).astype(np.uint32)
+        rk = np.sort(rng.integers(0, 60, 50)).astype(np.uint32)
+        cap = 512
+    elif name == "multi_tile":
+        lk = rng.integers(0, 400, 700).astype(np.uint32)
+        rk = np.sort(rng.integers(0, 400, 600)).astype(np.uint32)
+        cap = 4096
+    elif name == "heavy_fanout":
+        lk = np.array([5, 5, 5], np.uint32)
+        rk = np.full(300, 5, np.uint32)
+        cap = 1024
+    elif name == "no_matches":
+        lk = np.array([1, 2, 3], np.uint32)
+        rk = np.array([10, 20], np.uint32)
+        cap = 128
+    elif name == "empty_left":
+        lk = np.zeros(0, np.uint32)
+        rk = np.array([1, 2], np.uint32)
+        cap = 128
+    elif name == "empty_right":
+        lk = np.array([1, 2], np.uint32)
+        rk = np.zeros(0, np.uint32)
+        cap = 128
+    elif name == "overflow":
+        lk = np.full(20, 9, np.uint32)
+        rk = np.full(20, 9, np.uint32)
+        cap = 128  # 400 matches: outputs hold a prefix, total is exact
+    elif name == "keys_above_2_31":
+        lk = np.array([10, 2**31 + 5, 2**31 + 9, 7], np.uint32)
+        rk = np.array([7, 2**31 + 5, 2**31 + 9, 2**31 + 9], np.uint32)
+        cap = 128
+    elif name == "sentinel_rows":
+        lk = rng.integers(0, 50, 300).astype(np.uint32)
+        rk = np.sort(rng.integers(0, 50, 200)).astype(np.uint32)
+        lvalid = rng.random(300) < 0.7  # holes anywhere on the left
+        rvalid = np.arange(200) < 150  # prefix validity on the right
+        cap = 2048
+    elif name == "sparse":
+        lk = np.arange(0, 2000, 2).astype(np.uint32)
+        rk = np.array([100, 1000, 1998], np.uint32)
+        cap = 256
+    else:
+        raise KeyError(name)
+    return lk, rk, cap, lvalid, rvalid
+
+
+MERGE_CASES = [
+    "nm_gaps",
+    "multi_tile",
+    "heavy_fanout",
+    "no_matches",
+    "empty_left",
+    "empty_right",
+    "overflow",
+    "keys_above_2_31",
+    "sentinel_rows",
+    "sparse",
+]
+
+
+@pytest.mark.parametrize("name", MERGE_CASES)
+def test_merge_join_indices_matches_jax(name):
+    lk, rk, cap, lvalid, rvalid = _case(name)
+    jargs = [jnp.asarray(lk), jnp.asarray(rk), cap]
+    targs = [t64(lk), t64(rk), cap]
+    if lvalid is not None:
+        jargs += [jnp.asarray(lvalid), jnp.asarray(rvalid)]
+        targs += [torch.from_numpy(lvalid), torch.from_numpy(rvalid)]
+    assert_join_equal(jpk.merge_join_indices(*jargs), tk.merge_join_indices(*targs))
+
+
+def _u64_keys(rng, n, lo_range, valid_frac, pad):
+    a = rng.integers(0, lo_range, n).astype(np.uint64)
+    b = rng.integers(0, 4, n).astype(np.uint64)
+    a[rng.random(n) < 0.1] |= np.uint64(1 << 31)  # quoted-triple IDs
+    k = (a << np.uint64(32)) | b
+    valid = rng.random(n) < valid_frac
+    return np.where(valid, k, pad), valid
+
+
+@pytest.mark.parametrize("seed,cap", [(0, 128), (1, 1000), (2, 4096)])
+def test_ranked_merge_join_indices_matches_jax(seed, cap):
+    rng = np.random.default_rng(seed)
+    lk, _ = _u64_keys(rng, 400, 40, 0.8, U64_LPAD)
+    rk, _ = _u64_keys(rng, 300, 40, 0.8, U64_RPAD)
+    with enable_x64(True):
+        jout = jpk.ranked_merge_join_indices(jnp.asarray(lk), jnp.asarray(rk), cap)
+        jout = tuple(np.asarray(x) for x in jout)
+    assert_join_equal(jout, tk.ranked_merge_join_indices(carrier(lk), carrier(rk), cap))
+
+
+def test_merge_path_wrapper_takes_plain_version_on_cpu():
+    before = dict(tk.LAUNCHES)
+    lk, rk, cap, _, _ = _case("nm_gaps")
+    tk.merge_join_indices(t64(lk), t64(rk), cap)
+    assert tk.LAUNCHES == before  # the CPU route launches no kernel
+
+
+# ------------------------------------------------------- device_join twins
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("masked", [False, True])
+def test_join_indices_matches_jax(seed, masked):
+    rng = np.random.default_rng(seed)
+    lk, lv = _u64_keys(rng, 300, 30, 0.9, U64_LPAD)
+    rk, rv = _u64_keys(rng, 250, 30, 0.9, U64_RPAD)
+    cap = 1024
+    jk = {"lvalid": lv, "rvalid": rv} if masked else {}
+    tkw = (
+        {"lvalid": torch.from_numpy(lv), "rvalid": torch.from_numpy(rv)}
+        if masked
+        else {}
+    )
+    jout = tuple(np.asarray(x) for x in jdj.join_indices(lk, rk, cap, **jk))
+    assert_join_equal(jout, tdj.join_indices(carrier(lk), carrier(rk), cap, **tkw))
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_join_indices_presorted_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    lk, lv = _u64_keys(rng, 300, 30, 0.85, U64_LPAD)
+    rk = np.sort(_u64_keys(rng, 250, 30, 1.0, U64_RPAD)[0])
+    rv = np.arange(250) < 200
+    cap = 1024
+    jout = tuple(
+        np.asarray(x)
+        for x in jdj.join_indices_presorted(lk, rk, cap, lvalid=lv, rvalid_prefix=rv)
+    )
+    tout = tdj.join_indices_presorted(
+        carrier(lk),
+        carrier(rk),
+        cap,
+        lvalid=torch.from_numpy(lv),
+        rvalid_prefix=torch.from_numpy(rv),
+    )
+    assert_join_equal(jout, tout)
+
+
+def test_pack_key_multi_matches_jax():
+    rng = np.random.default_rng(9)
+    lcols = [rng.integers(0, 6, 200).astype(np.uint32) for _ in range(3)]
+    rcols = [rng.integers(0, 6, 150).astype(np.uint32) for _ in range(3)]
+    lcols[0][:5] |= np.uint32(1 << 31)
+    lv = rng.random(200) < 0.8
+    rv = rng.random(150) < 0.8
+    with enable_x64(True):
+        jl, jr = jdj.pack_key_multi(
+            [jnp.asarray(c) for c in lcols],
+            [jnp.asarray(c) for c in rcols],
+            jnp.asarray(lv),
+            jnp.asarray(rv),
+        )
+        jl, jr = np.asarray(jl), np.asarray(jr)
+    tl, tr = tdj.pack_key_multi(
+        [t64(c) for c in lcols],
+        [t64(c) for c in rcols],
+        torch.from_numpy(lv),
+        torch.from_numpy(rv),
+    )
+    np.testing.assert_array_equal(tl.numpy(), carrier(jl).numpy())
+    np.testing.assert_array_equal(tr.numpy(), carrier(jr).numpy())
+
+
+def test_padding_carriers_keep_unsigned_order():
+    assert _LPAD == int(carrier(np.array([U64_LPAD]))[0])
+    assert _RPAD == int(carrier(np.array([U64_RPAD]))[0])
+    ids = np.array([0, 5, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
+    assert torch.equal(torch.argsort(key1(t64(ids))), torch.arange(5))
+
+
+# ---------------------------------------------------------------- lex_range
+
+
+def _lex_cols(rng, n, k):
+    cols = [rng.integers(0, 5, n).astype(np.uint32) for _ in range(k)]
+    cols[0][: n // 8] = SENT  # sentinel padding sorts last
+    order = np.lexsort(tuple(reversed(cols)))
+    return [c[order] for c in cols]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_lex_range_matches_jax(k):
+    rng = np.random.default_rng(20 + k)
+    cols = _lex_cols(rng, 257, k)
+    keys = [rng.integers(0, 6, 90).astype(np.uint32) for _ in range(k)]
+    keys[0][:4] = SENT
+    jlo, jhi = jwcoj.lex_range(
+        tuple(jnp.asarray(c) for c in cols), tuple(jnp.asarray(x) for x in keys)
+    )
+    tlo, thi = twcoj.lex_range([t64(c) for c in cols], [t64(x) for x in keys])
+    np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
+    for side, ref in (("left", jlo), ("right", jhi)):
+        got = twcoj.lex_searchsorted([t64(c) for c in cols], [t64(x) for x in keys], side)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+# ------------------------------------------------------------ lex-probe pair
+
+
+def _probe_inputs(seed, a_count, p=300):
+    rng = np.random.default_rng(seed)
+    kk = rng.integers(0, 12, p).astype(np.int32)
+    ch = rng.integers(0, a_count, p).astype(np.int32)
+    in_range = rng.random(p) < 0.8
+    sel = []
+    for _ in range(a_count):
+        nb = rng.integers(0, 12, p).astype(np.int32)
+        vals = [rng.integers(0, 4, p).astype(np.uint32) for _ in range(4)]
+        for v in vals:
+            v[rng.random(p) < 0.05] = SENT
+            v[rng.random(p) < 0.05] |= np.uint32(1 << 31)
+        sel.append((nb, *vals))
+    ex = []
+    for _ in range(a_count):
+        fl = rng.integers(0, 8, p).astype(np.int32)
+        fh = fl + rng.integers(0, 3, p).astype(np.int32)
+        tl = rng.integers(0, 4, p).astype(np.int32)
+        th = tl + rng.integers(0, 3, p).astype(np.int32)
+        dl2 = rng.integers(0, 4, p).astype(np.int32)
+        dh2 = dl2 + rng.integers(0, 2, p).astype(np.int32)
+        sent = rng.random(p) < 0.1
+        ex.append((fl, fh, tl, th, dl2, dh2, sent))
+    return kk, ch, in_range, sel, ex
+
+
+@pytest.mark.parametrize("a_count", [1, 2, 3])
+def test_lex_probe_select_matches_jax(a_count):
+    kk, ch, in_range, sel, _ = _probe_inputs(30 + a_count, a_count)
+    jval, jok, jisb = jpk.lex_probe_select(
+        jnp.asarray(kk),
+        jnp.asarray(ch),
+        jnp.asarray(in_range),
+        [tuple(jnp.asarray(x) for x in acc) for acc in sel],
+    )
+    tval, tok, tisb = tk.lex_probe_select(
+        t64(kk),
+        t64(ch),
+        torch.from_numpy(in_range),
+        [tuple(t64(x) for x in acc) for acc in sel],
+    )
+    np.testing.assert_array_equal(tval.numpy(), np.asarray(jval).astype(np.int64))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    np.testing.assert_array_equal(tisb.numpy(), np.asarray(jisb))
+
+
+@pytest.mark.parametrize("a_count", [1, 2, 3])
+def test_lex_probe_validate_matches_jax(a_count):
+    rng = np.random.default_rng(40 + a_count)
+    _, ch, _, _, ex = _probe_inputs(40 + a_count, a_count)
+    ok = rng.random(ch.shape[0]) < 0.7
+    isb = rng.random(ch.shape[0]) < 0.5
+    jv = jpk.lex_probe_validate(
+        jnp.asarray(ok),
+        jnp.asarray(isb),
+        jnp.asarray(ch),
+        [tuple(jnp.asarray(x) for x in acc) for acc in ex],
+    )
+    tv = tk.lex_probe_validate(
+        torch.from_numpy(ok),
+        torch.from_numpy(isb),
+        t64(ch),
+        [
+            tuple(t64(x) for x in acc[:6]) + (torch.from_numpy(acc[6]),)
+            for acc in ex
+        ],
+    )
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
