@@ -1,7 +1,9 @@
 """End-to-end smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py                 # every phase, as the check runs it
-    python3 chip_smoke.py --universities 50 --employees 2000   # a quick run
+    python3 chip_smoke.py
+
+(on a machine with one CUDA card; ``chip_profile.py`` breaks the same
+queries down by phase and device operator).
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -18,10 +20,11 @@ result line):
             ``execute_query_volcano`` on the card: employee join, LUBM Q2,
             Q9, and Q9 again under ``KOLIBRIE_WCOJ=off``.  Row counts are
             asserted and rows must equal the port's own run on the CPU.
-            Launch counters are zeroed just before and read just after.
+            Launch counters are zeroed just before and read just after;
+            each query's warm run must launch the kernels of its route.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs the main path gave it, with timings and the
-            bytes bound at 3.35 TB/s.
+            the largest inputs the main path gave it, both timed on the
+            device, and the bound: the bytes the function needs at 3.35 TB/s.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -29,7 +32,6 @@ Prints the kernel table as one JSON line, the card line, and last
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -37,7 +39,19 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+UNIVERSITIES = 1000  # LUBM-1000
+LUBM_TRIPLES = 3_785_000
+EMPLOYEES = 25_000  # employee-100K: 4 triples per employee
 EXPECTED_ROWS = {"employee": 25_000, "q2": 56_120, "q9": 640_000, "q9_wcoj_off": 640_000}
+# Kernel launches each query's warm run must make (the route it must take)
+EXPECTED_LAUNCHES = {
+    "employee": {"merge_path_join": 1, "merge_join_indices": 1},
+    "q2": {"lex_probe_select": 1, "lex_probe_validate": 1},
+    "q9": {"lex_probe_select": 1, "lex_probe_validate": 1},
+    "q9_wcoj_off": {
+        "merge_path_join": 2, "merge_join_indices": 1, "ranked_merge_join_indices": 1,
+    },
+}
 
 EMPLOYEE_QUERY = """PREFIX ds: <https://data.example/ontology#>
 PREFIX foaf: <http://xmlns.com/foaf/0.1/>
@@ -82,19 +96,38 @@ def employee_ntriples(n: int) -> str:
 # ------------------------------------------------------------------ timing
 
 
-def time_ms(fn, reps: int = 20) -> float:
+def time_ms(fn, reps: int = 20) -> tuple:
+    """``(device_ms, enqueue_ms)`` of one call of ``fn``.  Device time: the
+    calls are queued behind a spin kernel, so the card runs them back to
+    back whatever the host's launch rate, and CUDA events time them; the
+    spin is lengthened until it outlasts the queueing.  Enqueue time: host
+    wall per call of ``reps`` calls ending in one synchronisation."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    enqueue_ms = (time.perf_counter() - t) * 1e3 / reps
+    cycles = 10_000_000
+    for _try in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        starved = start.query()  # spin over before the last call was queued
+        torch.cuda.synchronize()
+        if not starved:
+            break
+        cycles *= 4
+    else:
+        raise AssertionError("the host could not queue the calls ahead of the card")
+    return start.elapsed_time(end) / reps, enqueue_ms
 
 
 def max_abs_err(got, want) -> int:
@@ -223,19 +256,27 @@ def merge_path_bytes(args) -> int:
 
 
 def select_bytes(args) -> int:
-    """kk, ch (8 B) + in_range (1 B) per slot, the chosen accessor's five
-    columns (40 B) per slot, and val (8 B) + ok + is_base (2 B) written."""
-    p = args[0].shape[0]
-    return p * (8 + 8 + 1 + 40 + 10)
+    """Per slot: kk, ch (8 B each) + in_range (1 B) read, the chosen
+    accessor's nb and its base or delta value (16 B) read, val (8 B) + ok +
+    is_base (2 B) written; and the value's predecessor (8 B) for the slots
+    that do not start their range."""
+    import torch
+
+    kk, ch, _in_range, acc = args
+    p = kk.shape[0]
+    nb = torch.stack([a[0] for a in acc]).gather(0, ch.unsqueeze(0))[0]
+    needs_prev = int(torch.where(kk < nb, kk != 0, kk != nb).sum())
+    return p * (8 + 8 + 1 + 16 + 10) + 8 * needs_prev
 
 
 def validate_bytes(args) -> int:
-    """ok, is_base (1 B each) + ch (8 B) per slot; every accessor's six
-    ranges (48 B) + sent (1 B) for the slots still valid; 1 B written."""
+    """ok read and the mask written (1 B each) for every slot; is_base
+    (1 B), ch (8 B) and every accessor's six ranges (48 B) + sent (1 B) only
+    for the slots still valid."""
     ok, _isb, _ch, acc = args
     p = ok.shape[0]
     live = int(ok.sum())
-    return p * (1 + 1 + 8 + 1) + live * 49 * len(acc)
+    return p * 2 + live * (1 + 8) + live * 49 * len(acc)
 
 
 def check_random_shapes(dev) -> None:
@@ -249,33 +290,44 @@ def check_random_shapes(dev) -> None:
             check_validate(val_args)
 
 
-def run_main_path(dev, universities: int, employees: int) -> dict:
-    """Build both datasets on ``dev`` and run the four queries twice each
-    (cold: capacity convergence; warm: capacities cached), recording the
-    largest inputs each kernel wrapper receives.  Launch counters are
-    zeroed just before the queries and read just after."""
-    import torch
-
+def build_queries(dev) -> list:
+    """LUBM-1000 and employee-100K as databases on ``dev``, and the four
+    main-path queries over them as ``(name, db, sparql, KOLIBRIE_WCOJ)``.
+    Fails unless LUBM-1000 has its 3,785,000 triples."""
     from benches.lubm import LUBM_Q2, LUBM_Q9, generate_fast
-    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
-    from kolibrie_tpu_torch.ops import kernels as K
-    from kolibrie_tpu_torch.optimizer import device_engine as DE
+    from kolibrie_tpu_torch import SparqlDatabase
 
     t0 = time.perf_counter()
     lubm = SparqlDatabase(device=dev)
-    s, p, o = generate_fast(universities, lubm.dictionary)
+    s, p, o = generate_fast(UNIVERSITIES, lubm.dictionary)
     lubm.store.add_batch(s, p, o)
     emp = SparqlDatabase(device=dev)
-    emp.parse_ntriples(employee_ntriples(employees))
-    report = {"lubm_triples": len(lubm), "employee_triples": len(emp)}
-    log(f"data: LUBM {report['lubm_triples']} triples, employee "
-        f"{report['employee_triples']} triples, {time.perf_counter() - t0:.1f} s")
-    queries = [
+    emp.parse_ntriples(employee_ntriples(EMPLOYEES))
+    log(f"data: LUBM {len(lubm)} triples, employee {len(emp)} triples, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(lubm) != LUBM_TRIPLES:
+        raise AssertionError(f"LUBM-{UNIVERSITIES} has {len(lubm)} triples, "
+                             f"expected {LUBM_TRIPLES}")
+    return [
         ("employee", emp, EMPLOYEE_QUERY, "auto"),
         ("q2", lubm, LUBM_Q2, "auto"),
         ("q9", lubm, LUBM_Q9, "auto"),
         ("q9_wcoj_off", lubm, LUBM_Q9, "off"),
     ]
+
+
+def run_main_path(dev, queries: list) -> dict:
+    """Run the four queries twice each (cold: capacity convergence; warm:
+    capacities cached), recording the largest inputs each kernel wrapper
+    receives.  Launch counters are zeroed just before the queries and read
+    just after."""
+    import torch
+
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.optimizer import device_engine as DE
+
+    report = {}
     captured = {}
     capturing = {"on": False}  # record the LUBM Q9 shapes only
 
@@ -301,13 +353,14 @@ def run_main_path(dev, universities: int, employees: int) -> dict:
             capturing["on"] = name.startswith("q9")
             ms = []
             for _rep in range(2):  # cold (capacity convergence), then warm
-                before = dict(K.LAUNCHES)
+                before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
                 sync()
                 t = time.perf_counter()
                 rows[name] = execute_query_volcano(q, db)
                 sync()
                 ms.append((time.perf_counter() - t) * 1e3)
-            warm = {k: K.LAUNCHES[k] - before[k] for k in before}
+            after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+            warm = {k: after[k] - before[k] for k in before}
             timings[name] = {
                 "cold_ms": ms[0], "warm_ms": ms[1], "rows": len(rows[name]),
                 "warm_launches": warm,
@@ -324,78 +377,24 @@ def run_main_path(dev, universities: int, employees: int) -> dict:
     return {"report": report, "rows": rows, "captured": captured, "queries": queries}
 
 
-def profile_queries(main_path: dict, out_dir: str) -> dict:
-    """Where one warm run of each query spends its time: host phases
-    (planning, the device engine's ``execute``, decoding and formatting)
-    from timers around those functions, then device time by operator from
-    a second run under ``torch.profiler`` (the table goes to
-    ``out_dir/profile_<query>.txt`` when ``out_dir`` is given)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from kolibrie_tpu_torch import execute_query_volcano
-    from kolibrie_tpu_torch.optimizer import device_engine as DE
-    from kolibrie_tpu_torch.optimizer import planner as PL
-    from kolibrie_tpu_torch.query import executor as EX
-
-    spent = {}
-
-    def timed(name, fn):
-        def wrapped(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                if name == "engine":
-                    torch.cuda.synchronize()
-                spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t) * 1e3
-
-        return wrapped
-
-    with profile(activities=[ProfilerActivity.CUDA]):  # profiler start-up cost
-        torch.zeros(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-    out = {}
-    for name, db, q, wcoj in main_path["queries"]:
-        os.environ["KOLIBRIE_WCOJ"] = wcoj
-        orig = (PL.Streamertail.find_best_plan, DE.LoweredPlan.execute, EX.format_results)
-        PL.Streamertail.find_best_plan = timed("plan", orig[0])
-        DE.LoweredPlan.execute = timed("engine", orig[1])
-        EX.format_results = timed("format", orig[2])
-        spent.clear()
-        try:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            execute_query_volcano(q, db)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        finally:
-            PL.Streamertail.find_best_plan, DE.LoweredPlan.execute, EX.format_results = orig
-        phases = dict(spent)
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                execute_query_volcano(q, db)
-                torch.cuda.synchronize()
-        finally:
-            os.environ.pop("KOLIBRIE_WCOJ", None)
-        events = prof.key_averages()
-        dev = [e for e in events if e.device_type == DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-        out[name] = {
-            "wall_ms": wall_ms,
-            "host_phases_ms": phases,
-            "device_ms": dev_ms,
-            "device_ops": sum(e.count for e in dev),
-            "top_device": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top],
-        }
-        if out_dir:
-            with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as fh:
-                fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-        log(f"profile {name}: wall {wall_ms:.1f} ms, phases {phases}, device busy "
-            f"{dev_ms:.1f} ms over {out[name]['device_ops']} device ops")
-    return out
+def check_main_path(report: dict) -> None:
+    """Row counts of every query, and each query's warm run took its route
+    through the kernels (``EXPECTED_LAUNCHES``)."""
+    for name, want in EXPECTED_ROWS.items():
+        got = report["queries"][name]["rows"]
+        if got != want:
+            raise AssertionError(f"{name}: {got} rows, expected {want}")
+    for name, need in EXPECTED_LAUNCHES.items():
+        warm = report["queries"][name]["warm_launches"]
+        for k, n in need.items():
+            if warm[k] < n:
+                raise AssertionError(
+                    f"{name}: {k} launched {warm[k]} times in the warm run, "
+                    f"expected at least {n}"
+                )
+    for k, n in {**report["launches"], **report["entry_launches"]}.items():
+        if n <= 0:
+            raise AssertionError(f"{k} never reached its kernel on the main path")
 
 
 def compare_with_cpu(main_path: dict) -> None:
@@ -436,13 +435,13 @@ def kernels_at_main_path_shapes(captured: dict, launches: dict):
          "kolibrie_tpu/ops/pallas_kernels.py:783", K.lex_probe_validate,
          K.lex_probe_validate_plain, validate_bytes, check_validate),
     ]
-    line, detail = [], []
+    line = []
     log("kernels at LUBM-1000 Q9 shapes, tolerance 0 (bit-exact):")
     for name, src, replaces, fn, plain, nbytes, check in specs:
         size, a = captured[name]
         err = check(a)
-        ms = time_ms(lambda: fn(*a))
-        plain_ms = time_ms(lambda: plain(*a))
+        ms, enqueue_ms = time_ms(lambda: fn(*a))
+        plain_ms, plain_enqueue_ms = time_ms(lambda: plain(*a))
         b = nbytes(a)
         entry = {
             "name": name,
@@ -458,26 +457,16 @@ def kernels_at_main_path_shapes(captured: dict, launches: dict):
             "library_ms": None,
         }
         line.append(entry)
-        detail.append({**entry, "slots": size, "bytes": b})
-        log(f"{name}: {size} slots, {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {entry['bound_ms']:.4f} ms)")
-    return line, detail
+        log(f"{name}: {size} slots, {b} bytes, device {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms); host enqueue "
+            f"per call {enqueue_ms:.4f} ms (plain {plain_enqueue_ms:.4f} ms)")
+    return line
 
 
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--universities", type=int, default=1000)
-    ap.add_argument("--employees", type=int, default=25_000)
-    ap.add_argument("--out", help="write the full JSON report here (profile "
-                    "tables go to the same directory)")
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm run of each query (torch.profiler)")
-    args = ap.parse_args()
-    full = args.universities == 1000 and args.employees == 25_000
-
     import torch
 
     # ---- 1. card
@@ -492,16 +481,14 @@ def main() -> int:
     sys.path.insert(0, repo)
     from kolibrie_tpu_torch.ops import kernels as K
 
-    report = {"card": card}
-
     # ---- 2. build
     t0 = time.perf_counter()
     logs = K.build_kernels()
-    report["build_s"] = time.perf_counter() - t0
-    log(f"build: {report['build_s']:.1f} s")
+    log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "error" in line.lower():
+            if ("registers" in line or "smem" in line or "stack" in line
+                    or "error" in line.lower()):
                 log(f"  {name}: {line.strip()}")
 
     # ---- 3. kernels at random shapes
@@ -510,34 +497,14 @@ def main() -> int:
     log("kernels: bit-exact against the plain versions at random shapes")
 
     # ---- 4. main path
-    main_path = run_main_path(dev, args.universities, args.employees)
-    report.update(main_path["report"])
-    if full:
-        if main_path["report"]["lubm_triples"] != 3_785_000:
-            raise AssertionError("LUBM-1000 does not have 3,785,000 triples")
-        for name, want in EXPECTED_ROWS.items():
-            got = main_path["report"]["queries"][name]["rows"]
-            if got != want:
-                raise AssertionError(f"{name}: {got} rows, expected {want}")
-    for k, n in {**main_path["report"]["launches"], **main_path["report"]["entry_launches"]}.items():
-        if n <= 0:
-            raise AssertionError(f"{k} never reached its kernel on the main path")
+    main_path = run_main_path(dev, build_queries(dev))
+    check_main_path(main_path["report"])
     compare_with_cpu(main_path)
 
     # ---- 5. kernels at main-path shapes
-    kernels, detail = kernels_at_main_path_shapes(
+    kernels = kernels_at_main_path_shapes(
         main_path["captured"], main_path["report"]["launches"]
     )
-    report["kernels"] = detail
-    out_dir = None
-    if args.out:
-        out_dir = os.path.dirname(os.path.abspath(args.out))
-        os.makedirs(out_dir, exist_ok=True)
-    if args.profile:
-        report["profile"] = profile_queries(main_path, out_dir)
-    if args.out:
-        with open(args.out, "w") as fh:
-            json.dump(report, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

@@ -102,10 +102,11 @@ _SIGNATURES = {
         "kolibrie_merge_path_join": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "lex_probe": {
-        # kk, ch, in_range, acc table, a_count, p, val, ok, is_base, stream
+        # kk, ch, in_range, host acc table, a_count, p, val, ok, is_base, stream
         "kolibrie_lex_probe_select": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        # ok, is_base, ch, acc table, a_count, p, out, stream
+        # ok, is_base, ch, host acc table, a_count, p, out, stream
         "kolibrie_lex_probe_validate": [_P, _P, _P, _P, _I, _I, _P, _P],
+        "kolibrie_lex_probe_max_accessors": [],
     },
 }
 
@@ -214,12 +215,14 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def _ptr_table(cols: Sequence[torch.Tensor], device) -> torch.Tensor:
-    """Device array of column addresses: the kernel indexes accessor
-    columns by the runtime accessor count instead of one build per count."""
-    return torch.tensor([c.data_ptr() for c in cols], dtype=torch.int64).to(
-        device
-    )
+def _ptr_table(cols: Sequence[torch.Tensor], a_count: int):
+    """Host array of column addresses, which the C entry copies into the
+    kernel's parameter table: no device copy and no stream sync per launch.
+    Raises past the table's size."""
+    most = _lib("lex_probe").kolibrie_lex_probe_max_accessors()
+    if not 1 <= a_count <= most:
+        raise ValueError(f"{a_count} accessors; the lex-probe kernels take 1 to {most}")
+    return (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
 
 
 # ---------------------------------------------------------------------------
@@ -378,15 +381,17 @@ def ranked_merge_join_indices(lkey: torch.Tensor, rkey: torch.Tensor, cap: int):
 # Replace kolibrie_tpu/ops/pallas_kernels.py:_lex_probe_select_kernel and
 # _lex_probe_validate_kernel.  Both are elementwise over one WCOJ level's
 # candidate slots, one thread per slot; the accessor count is a runtime
-# argument and each accessor's columns arrive through a device table of
-# column addresses.
+# argument and each accessor's column addresses arrive by value in the
+# kernel's parameter table (at most 16 accessors), so a launch
+# adds no host-to-device copy and no stream synchronisation.
 #
 # Bound on the H100: bytes.  select reads (kk, ch, in_range) and then ONLY
-# the chosen accessor's five columns (the reference computes every
-# accessor and selects); validate reads (ok, is_base, ch) and an
-# accessor's seven columns only for slots still valid — an invalid slot
-# stays invalid whatever the probes say.  The floor counted in chip_smoke
-# is every input read once and every output written once at 3.35 TB/s.
+# the chosen accessor's nb and one side's value (plus its predecessor
+# unless the slot starts its range); the reference computes every accessor
+# and selects.  validate reads ok for every slot and (is_base, ch) and the
+# accessors' seven columns only for slots still valid — an invalid slot
+# stays invalid whatever the probes say.  chip_smoke counts exactly those
+# reads and the outputs written once, at 3.35 TB/s.
 
 
 def lex_probe_select_plain(kk, ch, in_range, accessors):
@@ -424,7 +429,7 @@ def lex_probe_select(kk, ch, in_range, accessors):
     dev = kk.device
     for t in flat:
         _arg(t, torch.int64, p)
-    table = _ptr_table(flat, dev)
+    table = _ptr_table(flat, len(accessors))
     val = torch.empty(p, dtype=torch.int64, device=dev)
     ok = torch.empty(p, dtype=torch.bool, device=dev)
     is_base = torch.empty(p, dtype=torch.bool, device=dev)
@@ -432,7 +437,7 @@ def lex_probe_select(kk, ch, in_range, accessors):
         _arg(kk, torch.int64, p),
         _arg(ch, torch.int64, p),
         _arg(in_range, torch.bool, p),
-        table.data_ptr(),
+        ctypes.cast(table, _P),
         len(accessors),
         p,
         val.data_ptr(),
@@ -471,13 +476,13 @@ def lex_probe_validate(ok, is_base, ch, accessors):
         for t in acc[:6]:
             _arg(t, torch.int64, p)
         _arg(acc[6], torch.bool, p)
-    table = _ptr_table(flat, dev)
+    table = _ptr_table(flat, len(accessors))
     out = torch.empty(p, dtype=torch.bool, device=dev)
     err = _lib("lex_probe").kolibrie_lex_probe_validate(
         _arg(ok, torch.bool, p),
         _arg(is_base, torch.bool, p),
         _arg(ch, torch.int64, p),
-        table.data_ptr(),
+        ctypes.cast(table, _P),
         len(accessors),
         p,
         out.data_ptr(),
