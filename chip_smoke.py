@@ -13,7 +13,9 @@ result line):
 2. build  — compile every kernel source with nvcc for sm_90a.
 3. kernels (random shapes) — each CUDA kernel against its plain PyTorch
             version on the same CUDA inputs, bit-exact: keys >= 2^31,
-            sentinel rows, skewed fan-out, overflowing capacities.
+            sentinel rows, skewed fan-out, overflowing capacities; the
+            filter at every wildcard pattern and compare op with the
+            0xFFFFFFFF constant; tag combines with 0, 1, NaN and +-0.0.
 4. main path — LUBM (``benches/lubm.py::generate_fast``, 1000 universities
             = 3,785,000 triples) and the employee-100K dataset (as
             ``bench.py`` builds it) through ``SparqlDatabase`` +
@@ -22,9 +24,31 @@ result line):
             asserted and rows must equal the port's own run on the CPU.
             Launch counters are zeroed just before and read just after;
             each query's warm run must launch the kernels of its route.
+6. reasoner — the Datalog closure of ``benches/bench_lubm.py`` (transitive
+            ``subOrganizationOf`` + ``memberOf`` propagation) over the same
+            LUBM-1000 columns, through ``Reasoner.
+            infer_new_facts_semi_naive_parallel`` (the device fixpoint above
+            50,000 facts) on the card, cold and then warm on a fresh
+            reasoner: 640,000 derived facts, the fact set equal to the
+            port's host strategy on a copy, and the warm run launching the
+            fused filter and the merge-path join.  Counters are zeroed just
+            before each run and read just after; a third, untimed run
+            records the kernels' inputs for phase 5.
+6b. small closure — LUBM at a few universities plus an age literal per
+            graduate student, with a negated premise, a numeric filter and a
+            three-premise rule, through ``DeviceFixpoint.infer`` and
+            ``infer_chunked(chunk_rows=1024)`` and
+            ``Reasoner.infer_new_facts_device``: the card's padded output
+            columns equal the port's CPU run row for row.
+6c. ops entry points — ``kolibrie_tpu_torch.ops.filter_mask`` (LUBM-1000
+            graduate students), ``merge_join`` (the Q9-off join's keys) and
+            ``tag_combine`` (every op, at the closure's fact capacity), with
+            counters zeroed just before and read just after.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs the main path gave it, both timed on the
-            device, and the bound: the bytes the function needs at 3.35 TB/s.
+            the largest inputs its path gave it (phases 4, 6 and 6c), both
+            timed on the device, and the bound: the bytes the function needs
+            at 3.35 TB/s.  Runs last, after the phases that record the
+            shapes.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +76,20 @@ EXPECTED_LAUNCHES = {
         "merge_path_join": 2, "merge_join_indices": 1, "ranked_merge_join_indices": 1,
     },
 }
+# Kernels the SELECT path (phase 4) must reach at all
+MAIN_PATH_KERNELS = (
+    "merge_path_join", "lex_probe_select", "lex_probe_validate",
+    "merge_join_indices", "ranked_merge_join_indices",
+)
+CLOSURE_DERIVED = 640_000  # memberOf of every LUBM-1000 student lifted to its university
+# Kernel launches the closure's warm run must make
+CLOSURE_LAUNCHES = {"filter_mask": 1, "merge_path_join": 1, "ranked_merge_join_indices": 1}
+# Kernels the ops API's entries (phase 6c) must reach
+OPS_ENTRY_KERNELS = ("filter_mask", "merge_join", "tag_combine")
+SMALL_UNIVERSITIES = 3
+LUBM_GRAD_STUDENTS = 160_000  # 20 of each department's 80 students
+TAG_OPS = ("min", "max", "mul", "noisy_or")
+TAG_ROWS = 1 << 25  # the LUBM-1000 closure's fact capacity
 
 EMPLOYEE_QUERY = """PREFIX ds: <https://data.example/ontology#>
 PREFIX foaf: <http://xmlns.com/foaf/0.1/>
@@ -100,8 +138,11 @@ def time_ms(fn, reps: int = 20) -> tuple:
     """``(device_ms, enqueue_ms)`` of one call of ``fn``.  Device time: the
     calls are queued behind a spin kernel, so the card runs them back to
     back whatever the host's launch rate, and CUDA events time them; the
-    spin is lengthened until it outlasts the queueing.  Enqueue time: host
-    wall per call of ``reps`` calls ending in one synchronisation."""
+    spin is lengthened until it outlasts the queueing, and the number of
+    calls halved each time as well: a call of many small launches fills the
+    card's launch queue, whose limit blocks the host behind the spin.
+    Enqueue time: host wall per call of ``reps`` calls ending in one
+    synchronisation."""
     import torch
 
     fn()
@@ -112,7 +153,7 @@ def time_ms(fn, reps: int = 20) -> tuple:
     torch.cuda.synchronize()
     enqueue_ms = (time.perf_counter() - t) * 1e3 / reps
     cycles = 10_000_000
-    for _try in range(4):
+    for _try in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -125,6 +166,7 @@ def time_ms(fn, reps: int = 20) -> tuple:
         if not starved:
             break
         cycles *= 4
+        reps = max(1, reps // 2)
     else:
         raise AssertionError("the host could not queue the calls ahead of the card")
     return start.elapsed_time(end) / reps, enqueue_ms
@@ -142,12 +184,28 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def float_err(got, want) -> float:
+    """0.0 when the f32 tensors are bit-identical, NaN matching NaN; else
+    the largest absolute difference among the rows that differ."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        torch.isnan(got) & torch.isnan(want)
+    )
+    if bool(same.all()):
+        return 0.0
+    return float((got - want).abs()[~same].nan_to_num(float("inf")).max())
+
+
 # ----------------------------------------------------- kernel comparisons
 
 
-def merge_path_args_random(seed: int, dev):
-    """Prepass outputs of one random merge join: keys with bit 31 set,
-    Zipf-skewed fan-out, left sentinel holes, prefix-valid right side."""
+def random_join_keys(seed: int, dev):
+    """Keys of one random merge join: bit 31 set on a fifth of them,
+    Zipf-skewed fan-out, left sentinel holes, prefix-valid sorted right
+    side."""
     import torch
 
     from kolibrie_tpu_torch.ops import kernels as K
@@ -162,6 +220,16 @@ def merge_path_args_random(seed: int, dev):
     rvalid = torch.arange(n_r) < int(n_r * 0.95)
     lk = torch.where(lvalid, lk, K.SENT - 1).to(dev)
     rk = torch.where(rvalid, rk, K.SENT).to(dev)
+    return lk, rk, g
+
+
+def merge_path_args_random(seed: int, dev):
+    """Prepass outputs of one random merge join (:func:`random_join_keys`),
+    at a capacity that holds every match and at one that overflows."""
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    lk, rk, _g = random_join_keys(seed, dev)
+    n_l, n_r = lk.shape[0], rk.shape[0]
     lidx_c, low_c, cum, total = K._join_prepass(lk, rk)
     total_h = int(total)
     # once exactly at the match count, once overflowing (half the matches)
@@ -177,6 +245,106 @@ def check_merge_path(args) -> int:
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"merge_path_join differs from its plain version by {err}")
+    return err
+
+
+def merge_join_args_random(seed: int, dev):
+    """``merge_join`` arguments over :func:`random_join_keys` with random
+    u32 payloads, at a capacity that holds every match and at one that
+    overflows."""
+    import torch
+
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    lk, rk, g = random_join_keys(seed, dev)
+    lval = torch.randint(0, 1 << 32, (lk.shape[0],), generator=g).to(dev)
+    rval = torch.randint(0, 1 << 32, (rk.shape[0],), generator=g).to(dev)
+    total = int(K._join_prepass(lk, rk)[3])
+    return [(lk, lval, rk, rval, cap) for cap in (total, max(total // 2, 1))]
+
+
+def merge_join_plain(*args):
+    """``merge_join`` with the merge-path kernel's plain version in its
+    place: the plain form of the whole entry."""
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    saved = K.merge_path
+    K.merge_path = K.merge_path_plain
+    try:
+        return K.merge_join(*args)
+    finally:
+        K.merge_path = saved
+
+
+def check_merge_join(args) -> int:
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    err = max_abs_err(K.merge_join(*args), merge_join_plain(*args))
+    if err:
+        raise AssertionError(f"merge_join differs from its plain form by {err}")
+    return err
+
+
+# IDs for the filter checks: bit 31 set, the largest ID and the sentinel
+FILTER_IDS = (0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE, 0xFFFFFFFF)
+
+
+def filter_args_random(seed: int, n: int, dev) -> list:
+    """Three ID columns of ``n`` rows drawn from :data:`FILTER_IDS`, and the
+    keyword arguments of every wildcard pattern crossed with every
+    ``o_op`` (-1 none, 0..5), with constants from the same pool."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pool = torch.tensor(FILTER_IDS, dtype=torch.int64)
+    s, p, o = (pool[torch.randint(0, len(pool), (n,), generator=g)].to(dev) for _ in range(3))
+    out = []
+    for pattern in range(8):
+        for op in range(-1, 6):
+            c = [FILTER_IDS[int(i)] for i in torch.randint(0, len(pool), (4,), generator=g)]
+            kw = {
+                "s_const": c[0] if pattern & 1 else -1,
+                "p_const": c[1] if pattern & 2 else -1,
+                "o_const": c[2] if pattern & 4 else -1,
+                "o_op": op,
+                "o_cmp": c[3],
+            }
+            out.append((s, p, o, kw))
+    kw_never = {"s_const": 0xFFFFFFFF, "p_const": -1, "o_const": -1, "o_op": -1, "o_cmp": 0}
+    out.append((s, p, o, kw_never))
+    return out
+
+
+def check_filter(args) -> int:
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    s, p, o, kw = args
+    err = max_abs_err([K.filter_mask(s, p, o, **kw)], [K.filter_mask_plain(s, p, o, **kw)])
+    if err:
+        raise AssertionError(f"filter_mask {kw} differs from its plain version by {err}")
+    return err
+
+
+def tag_args_random(seed: int, n: int, dev):
+    """Two f32 tag columns in [0, 1] with 0, 1, NaN and +-0.0 planted."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(n, generator=g)
+    b = torch.rand(n, generator=g)
+    special = torch.tensor([0.0, 1.0, float("nan"), -0.0, 0.0, 1.0, float("nan"), -0.0])
+    k = min(n, len(special))
+    a[:k], b[:k] = special[:k], special.flip(0)[:k]
+    return a.to(dev), b.to(dev)
+
+
+def check_tag(args) -> float:
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    a, b, op = args
+    err = float_err(K.tag_combine(a, b, op), K.tag_combine_plain(a, b, op))
+    if err:
+        raise AssertionError(f"tag_combine {op} differs from its plain version by {err}")
     return err
 
 
@@ -279,15 +447,50 @@ def validate_bytes(args) -> int:
     return p * 2 + live * (1 + 8) + live * 49 * len(acc)
 
 
+def filter_bytes(args) -> int:
+    """8 bytes a row of each column an active clause reads (the object
+    once, for its constant and its compare), and the 1-byte mask written."""
+    s, _p, _o, kw = args
+    cols = (kw["s_const"] >= 0) + (kw["p_const"] >= 0) + (
+        kw["o_const"] >= 0 or kw["o_op"] >= 0
+    )
+    return s.shape[0] * (8 * cols + 1)
+
+
+def tag_bytes(args) -> int:
+    """Two f32 inputs read, one f32 output written."""
+    return args[0].shape[0] * 12
+
+
+def merge_join_bytes(args) -> int:
+    """Keys and payloads of both sides read once (8 bytes each a row); the
+    key, both payloads (8 bytes each) and the valid byte written for every
+    output slot."""
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    lk, _lv, rk, _rv, cap = args
+    return 16 * (lk.shape[0] + rk.shape[0]) + 25 * K._round_out(cap)
+
+
 def check_random_shapes(dev) -> None:
     for seed in range(3):
         for a in merge_path_args_random(seed, dev):
             check_merge_path(a)
+        for a in merge_join_args_random(seed, dev):
+            check_merge_join(a)
     for a_count in (1, 2, 3):
         for p in (1, 1000, 300_001):
             sel_args, val_args = probe_args_random(10 * a_count + p % 7, a_count, p, dev)
             check_select(sel_args)
             check_validate(val_args)
+    for n in (1, 1000, 300_001):
+        for s, p, o, kw in filter_args_random(n % 97, n, dev):
+            check_filter((s, p, o, kw))
+            check_filter((s[1:], p[1:], o[1:], kw))  # a view off 16-byte alignment
+        a, b = tag_args_random(n % 89, n, dev)
+        for op in TAG_OPS:
+            check_tag((a, b, op))
+            check_tag((a[1:], b[1:], op))
 
 
 def build_queries(dev) -> list:
@@ -341,10 +544,14 @@ def run_main_path(dev, queries: list) -> dict:
         return wrapped
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    orig = (K.merge_path, DE.lex_probe_select, DE.lex_probe_validate)
+    orig = (K.merge_path, DE.lex_probe_select, DE.lex_probe_validate, K._merge_join_core)
     K.merge_path = recorder("merge_path_join", orig[0], lambda a: a[6])
     DE.lex_probe_select = recorder("lex_probe_select", orig[1], lambda a: a[0].shape[0])
     DE.lex_probe_validate = recorder("lex_probe_validate", orig[2], lambda a: a[0].shape[0])
+    # the presorted join's keys (after masking), for merge_join's row
+    K._merge_join_core = recorder(
+        "merge_join_keys", orig[3], lambda a: a[2] if a[3] == "merge_join_indices" else -1
+    )
     rows, timings = {}, {}
     K.reset_launches()
     try:
@@ -368,7 +575,7 @@ def run_main_path(dev, queries: list) -> dict:
             log(f"{name}: {len(rows[name])} rows, cold {ms[0]:.1f} ms, "
                 f"warm {ms[1]:.1f} ms, warm-run launches {warm}")
     finally:
-        K.merge_path, DE.lex_probe_select, DE.lex_probe_validate = orig
+        K.merge_path, DE.lex_probe_select, DE.lex_probe_validate, K._merge_join_core = orig
         os.environ.pop("KOLIBRIE_WCOJ", None)
     report["launches"] = dict(K.LAUNCHES)
     report["entry_launches"] = dict(K.ENTRY_LAUNCHES)
@@ -392,8 +599,9 @@ def check_main_path(report: dict) -> None:
                     f"{name}: {k} launched {warm[k]} times in the warm run, "
                     f"expected at least {n}"
                 )
-    for k, n in {**report["launches"], **report["entry_launches"]}.items():
-        if n <= 0:
+    counts = {**report["launches"], **report["entry_launches"]}
+    for k in MAIN_PATH_KERNELS:
+        if counts[k] <= 0:
             raise AssertionError(f"{k} never reached its kernel on the main path")
 
 
@@ -419,47 +627,341 @@ def compare_with_cpu(main_path: dict) -> None:
     log(f"main path: rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
 
 
-def kernels_at_main_path_shapes(captured: dict, launches: dict):
-    """Each kernel against its plain version on the largest inputs the main
-    path gave it, with both timed and the bytes bound."""
+# --------------------------------------------------------------- reasoner
+
+
+def add_lubm_closure_rules(r) -> None:
+    """The closure of ``benches/bench_lubm.py``: transitive
+    ``subOrganizationOf`` and ``memberOf`` lifted along it."""
+    from benches.lubm import UB
+
+    sub, mem = UB + "subOrganizationOf", UB + "memberOf"
+    r.add_rule(r.rule_from_strings([("?a", sub, "?b"), ("?b", sub, "?c")], [("?a", sub, "?c")]))
+    r.add_rule(r.rule_from_strings([("?x", mem, "?d"), ("?d", sub, "?u")], [("?x", mem, "?u")]))
+
+
+def same_facts(a, b) -> bool:
+    """Two reasoners hold the same fact set (compacted columns are sorted
+    and deduplicated)."""
+    import numpy as np
+
+    return all(np.array_equal(x, y) for x, y in zip(a.facts.columns(), b.facts.columns()))
+
+
+def run_closure(dev, lubm) -> dict:
+    """Phase 6: the LUBM-1000 closure through the reasoner's public entry,
+    cold and then warm, each on a fresh reasoner over the same columns,
+    with the launch counters zeroed just before each run and read just
+    after.  A third, untimed run records the largest inputs the fused
+    filter and the merge-path kernel received (a record inside a timed run
+    would hold them on the card through that run's peak-memory reading)."""
+    import torch
+
+    from kolibrie_tpu_torch import Reasoner
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+    s, p, o = lubm.store.columns()
+
+    def fresh():
+        r = Reasoner(lubm.dictionary, device=dev)
+        r.facts.add_batch(s, p, o)
+        add_lubm_closure_rules(r)
+        len(r.facts)  # compact on the host before the clock starts
+        return r
+
+    fixpoints = []
+    orig_infer = FX.DeviceFixpoint.infer
+
+    def infer_rec(self, *a, **k):
+        out = orig_infer(self, *a, **k)
+        # not the DeviceFixpoint itself, which holds its output columns
+        fixpoints.append((self.last_rounds, vars(self.converged_caps)))
+        return out
+
+    runs = {}
+    FX.DeviceFixpoint.infer = infer_rec
+    try:
+        for label in ("cold", "warm"):
+            r = fresh()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t = time.perf_counter()
+            derived = r.infer_new_facts_semi_naive_parallel()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            launches = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+            if len(fixpoints) != len(runs) + 1:
+                raise AssertionError(f"{label} closure did not take the device fixpoint")
+            rounds, caps = fixpoints[-1]
+            runs[label] = {
+                "derived": derived, "ms": ms, "rounds": rounds, "caps": caps,
+                "peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+            }
+            log(f"closure {label}: {derived} derived, {ms:.1f} ms, {rounds} rounds, "
+                f"caps {caps}, peak device memory {runs[label]['peak_bytes']} B, "
+                f"launches {launches}")
+    finally:
+        FX.DeviceFixpoint.infer = orig_infer
+    for label, run in runs.items():
+        if run["derived"] != CLOSURE_DERIVED:
+            raise AssertionError(f"closure {label}: {run['derived']} derived, "
+                                 f"expected {CLOSURE_DERIVED}")
+    for k, n in CLOSURE_LAUNCHES.items():
+        if runs["warm"]["launches"][k] < n:
+            raise AssertionError(f"closure warm run launched {k} "
+                                 f"{runs['warm']['launches'][k]} times, expected >= {n}")
+    t0 = time.perf_counter()
+    host = fresh()
+    host.infer_new_facts_semi_naive()
+    if not same_facts(host, r):
+        raise AssertionError("closure: the card's fact set differs from the host strategy's")
+    log(f"closure: fact set equals the host strategy's ({time.perf_counter() - t0:.1f} s)")
+    del host, r
+    return {"runs": runs, "captured": record_closure_inputs(fresh)}
+
+
+def record_closure_inputs(fresh) -> dict:
+    """One more closure run on ``fresh()``, recording the largest fact scan
+    the fused filter received and the merge-path call with the most output
+    slots, then matches, then left rows: the inputs phase 5 times the
+    kernels on.  Reading each call's match count syncs, so this run is not
+    timed."""
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+    captured = {}
+    orig = (FX.filter_mask, K.merge_path)
+
+    def filter_rec(s_, p_, o_, s_c, p_c, o_c):
+        if s_.shape[0] > captured.get("filter_mask", (0, None))[0]:
+            kw = {"s_const": s_c, "p_const": p_c, "o_const": o_c, "o_op": -1, "o_cmp": 0}
+            captured["filter_mask"] = (s_.shape[0], (s_, p_, o_, kw))
+        return orig[0](s_, p_, o_, s_c, p_c, o_c)
+
+    def merge_rec(*a):
+        key = (a[6], int(a[3]), a[4])
+        if key > captured.get("merge_path_join", ((0, 0, 0), None))[0]:
+            captured["merge_path_join"] = (key, a)
+        return orig[1](*a)
+
+    FX.filter_mask, K.merge_path = filter_rec, merge_rec
+    try:
+        derived = fresh().infer_new_facts_semi_naive_parallel()
+    finally:
+        FX.filter_mask, K.merge_path = orig
+    if derived != CLOSURE_DERIVED:
+        raise AssertionError(f"closure record run: {derived} derived")
+    log(f"closure inputs: filter scan {captured['filter_mask'][0]} rows, merge path "
+        f"(slots, matches, left rows) {captured['merge_path_join'][0]}")
+    return captured
+
+
+def small_closure_reasoner(dev):
+    """LUBM at a few universities, an age literal for every graduate
+    student, and rules the LUBM closure does not reach: a negated premise,
+    a numeric filter and a three-premise join (beside the memberOf lift)."""
+    import numpy as np
+
+    from benches.lubm import RDF_TYPE, UB, generate_fast
+    from kolibrie_tpu_torch import Reasoner
+    from kolibrie_tpu_torch.core.rule import FilterCondition
+
+    r = Reasoner(device=dev)
+    enc = r.dictionary.encode
+    s, p, o = generate_fast(SMALL_UNIVERSITIES, r.dictionary)
+    r.facts.add_batch(s, p, o)
+    grads = s[(p == enc(RDF_TYPE)) & (o == enc(UB + "GraduateStudent"))]
+    ages = np.array([enc(f'"{22 + i % 13}"') for i in range(len(grads))], np.uint32)
+    r.facts.add_batch(grads, np.full(len(grads), enc(UB + "age"), np.uint32), ages)
+    add_lubm_closure_rules(r)
+    ub = {k: UB + k for k in ("memberOf", "advisor", "teacherOf", "takesCourse", "age")}
+    r.add_rule(r.rule_from_strings(
+        [("?x", ub["memberOf"], "?d")], [("?x", UB + "undergraduateMemberOf", "?d")],
+        negative=[("?x", RDF_TYPE, UB + "GraduateStudent")]))
+    r.add_rule(r.rule_from_strings(
+        [("?x", ub["age"], "?a")], [("?x", RDF_TYPE, UB + "SeniorStudent")],
+        filters=[FilterCondition("a", ">", 28.0)]))
+    r.add_rule(r.rule_from_strings(
+        [("?x", ub["advisor"], "?f"), ("?f", ub["teacherOf"], "?c"),
+         ("?x", ub["takesCourse"], "?c")],
+        [("?x", UB + "takesAdvisorCourse", "?c")]))
+    return r
+
+
+def run_small_closure(dev) -> None:
+    """Phase 6b: the small closure on the card and on the CPU through both
+    entries; padded output columns, counts, rounds and capacities equal."""
+    import torch
+
+    from kolibrie_tpu_torch.reasoner.device_fixpoint import DeviceFixpoint
+
+    cpu = torch.device("cpu")
+    for entry, kw in (("infer", {}), ("infer_chunked", {"chunk_rows": 1024})):
+        got = {}
+        for d in (dev, cpu):
+            fx = DeviceFixpoint(small_closure_reasoner(d))
+            derived = getattr(fx, entry)(**kw)
+            fs, fp, fo, n, _n0 = fx._last_state
+            got[d.type] = (derived, n, fx.last_rounds, vars(fx.converged_caps),
+                           [c[:n].cpu() for c in (fs, fp, fo)])
+        card, host = got[dev.type], got["cpu"]
+        if card[:4] != host[:4]:
+            raise AssertionError(f"small closure {entry}: card {card[:4]} vs CPU {host[:4]}")
+        if not all(torch.equal(a, b) for a, b in zip(card[4], host[4])):
+            raise AssertionError(f"small closure {entry}: padded columns differ from the CPU run")
+        if card[0] <= 0:
+            raise AssertionError(f"small closure {entry}: nothing derived")
+        log(f"small closure {entry}: {card[0]} derived, {card[2]} rounds, caps {card[3]}, "
+            f"columns equal the CPU run row for row")
+    r_card, r_host = small_closure_reasoner(dev), small_closure_reasoner(cpu)
+    derived = r_card.infer_new_facts_device()
+    r_host.infer_new_facts_semi_naive()
+    if derived != got["cpu"][0] or not same_facts(r_card, r_host):
+        raise AssertionError("small closure: infer_new_facts_device differs from the host strategy")
+
+
+def run_ops_entries(dev, lubm, q9_off_keys) -> dict:
+    """Phase 6c: the ops API's kernel entries, counters zeroed just before
+    and read just after.  Returns per-entry launches and the inputs phase 5
+    times them on."""
+    import torch
+
+    import kolibrie_tpu_torch.ops as ops
+    from benches.lubm import RDF_TYPE, UB
     from kolibrie_tpu_torch.ops import kernels as K
 
-    specs = [
-        ("merge_path_join", "kolibrie_tpu_torch/csrc/merge_join.cu",
-         "kolibrie_tpu/ops/pallas_kernels.py:181", K.merge_path, K.merge_path_plain,
-         merge_path_bytes, check_merge_path),
-        ("lex_probe_select", "kolibrie_tpu_torch/csrc/lex_probe.cu",
-         "kolibrie_tpu/ops/pallas_kernels.py:743", K.lex_probe_select,
-         K.lex_probe_select_plain, select_bytes, check_select),
-        ("lex_probe_validate", "kolibrie_tpu_torch/csrc/lex_probe.cu",
-         "kolibrie_tpu/ops/pallas_kernels.py:783", K.lex_probe_validate,
-         K.lex_probe_validate_plain, validate_bytes, check_validate),
+    enc = lubm.dictionary.encode
+    s, p, o = (torch.from_numpy(c.astype("int64")).to(dev) for c in lubm.store.columns())
+    lk, rk, cap, _entry = q9_off_keys
+    lval = torch.arange(lk.shape[0], device=dev)
+    rval = torch.arange(rk.shape[0], device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.rand(TAG_ROWS, generator=g, device=dev)
+    b = torch.rand(TAG_ROWS, generator=g, device=dev)
+
+    K.reset_launches()
+    grads = ops.filter_mask(s, p, o, p_const=enc(RDF_TYPE), o_const=enc(UB + "GraduateStudent"))
+    key, lv, rv, valid, total = ops.merge_join(lk, lval, rk, rval, cap)
+    tags, tag_launches = {}, {}
+    for op in TAG_OPS:
+        before = K.LAUNCHES["tag_combine"]
+        tags[op] = ops.tag_combine(a, b, op)
+        tag_launches[op] = K.LAUNCHES["tag_combine"] - before
+    torch.cuda.synchronize()
+    launches = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+
+    if int(grads.sum()) != LUBM_GRAD_STUDENTS:
+        raise AssertionError(f"filter_mask: {int(grads.sum())} graduate students")
+    li, ri, v2, t2 = K.merge_join_indices(lk, rk, cap)
+    want = (torch.where(v2, lk[li], 0), torch.where(v2, li, 0), torch.where(v2, ri, 0), v2, t2)
+    if max_abs_err((key, lv, rv, valid, total), want):
+        raise AssertionError("merge_join disagrees with merge_join_indices")
+    for op in TAG_OPS:
+        if float_err(tags[op], K.tag_combine_plain(a, b, op)):
+            raise AssertionError(f"tag_combine {op} disagrees with its plain version")
+    for k in OPS_ENTRY_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"ops.{k} never reached its kernel")
+    log(f"ops entries: {int(grads.sum())} graduate students, merge_join {int(total)} "
+        f"matches, launches {launches}")
+    return {
+        "launches": launches,
+        "tag_launches": tag_launches,
+        "merge_join": (lk, lval, rk, rval, cap),
+        "tags": (a, b),
+    }
+
+
+# ------------------------------------------------------- kernel timing
+
+
+def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
+    """One kernel row: its check against the plain version on ``args``,
+    device times of the kernel, the plain version and the library call,
+    and the bytes bound."""
+    err = check(args)
+    ms, enqueue_ms = time_ms(lambda: fn(*args))
+    plain_ms, plain_enqueue_ms = time_ms(lambda: plain(*args))
+    library_ms = time_ms(library)[0] if library is not None else None
+    b = nbytes(args)
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": src,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+    log(f"{name}: {b} bytes, device {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms, library {library_ms}); host enqueue per call "
+        f"{enqueue_ms:.4f} ms (plain {plain_enqueue_ms:.4f} ms)")
+    return entry
+
+
+def kernels_at_main_path_shapes(main_path: dict, closure: dict, entries: dict):
+    """Phase 5: each kernel against its plain version on the largest inputs
+    its path gave it, with both timed and the bytes bound.  Launches are
+    each path's own count: phase 4 for the SELECT kernels, the closure's
+    warm run (phase 6) for the fused filter and the closure's merge path,
+    phase 6c for the ops entries."""
+    import torch
+
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    cap4 = main_path["captured"]
+    l4 = main_path["report"]["launches"]
+    pk = "kolibrie_tpu/ops/pallas_kernels.py:"
+    csrc = "kolibrie_tpu_torch/csrc/"
+    log("kernels at the paths' largest shapes, tolerance 0 (bit-exact):")
+    warm = closure["runs"]["warm"]["launches"]
+    line = [
+        timed_row("merge_path_join", csrc + "merge_join.cu", pk + "181", l4["merge_path_join"],
+                  cap4["merge_path_join"][1], K.merge_path, K.merge_path_plain,
+                  merge_path_bytes, check_merge_path),
+        timed_row("merge_path_join[closure]", csrc + "merge_join.cu", pk + "181",
+                  warm["merge_path_join"], closure["captured"]["merge_path_join"][1],
+                  K.merge_path, K.merge_path_plain, merge_path_bytes, check_merge_path),
+        timed_row("lex_probe_select", csrc + "lex_probe.cu", pk + "743", l4["lex_probe_select"],
+                  cap4["lex_probe_select"][1], K.lex_probe_select, K.lex_probe_select_plain,
+                  select_bytes, check_select),
+        timed_row("lex_probe_validate", csrc + "lex_probe.cu", pk + "783",
+                  l4["lex_probe_validate"], cap4["lex_probe_validate"][1], K.lex_probe_validate,
+                  K.lex_probe_validate_plain, validate_bytes, check_validate),
+        timed_row("merge_join", csrc + "merge_join.cu", pk + "522",
+                  entries["launches"]["merge_join"], entries["merge_join"], K.merge_join,
+                  merge_join_plain, merge_join_bytes, check_merge_join),
     ]
-    line = []
-    log("kernels at LUBM-1000 Q9 shapes, tolerance 0 (bit-exact):")
-    for name, src, replaces, fn, plain, nbytes, check in specs:
-        size, a = captured[name]
-        err = check(a)
-        ms, enqueue_ms = time_ms(lambda: fn(*a))
-        plain_ms, plain_enqueue_ms = time_ms(lambda: plain(*a))
-        b = nbytes(a)
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": src,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": b / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": None,
-        }
-        line.append(entry)
-        log(f"{name}: {size} slots, {b} bytes, device {ms:.4f} ms (plain "
-            f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms); host enqueue "
-            f"per call {enqueue_ms:.4f} ms (plain {plain_enqueue_ms:.4f} ms)")
+    # the merge-path kernel alone inside that merge_join call
+    lk, _lv, rk, _rv, cap = entries["merge_join"]
+    inner = (*K._join_prepass(lk, rk), lk.shape[0], rk.shape[0], K._round_out(cap))
+    log(f"merge_join: its merge-path kernel alone {time_ms(lambda: K.merge_path(*inner))[0]:.4f} "
+        f"ms of the entry's {line[-1]['ms']:.4f} ms")
+
+    def filt(s, p, o, kw):
+        return K.filter_mask(s, p, o, **kw)
+
+    def filt_plain(s, p, o, kw):
+        return K.filter_mask_plain(s, p, o, **kw)
+
+    line.append(timed_row("filter_mask", csrc + "filter_mask.cu", pk + "887",
+                          warm["filter_mask"],
+                          closure["captured"]["filter_mask"][1], filt, filt_plain,
+                          filter_bytes, check_filter))
+    a, b = entries["tags"]
+    library = {"min": torch.minimum, "max": torch.maximum, "mul": torch.mul}
+    for op in TAG_OPS:
+        lib = library.get(op)
+        line.append(timed_row(f"tag_combine[{op}]", csrc + "tag_combine.cu", pk + "995",
+                              entries["tag_launches"][op], (a, b, op), K.tag_combine,
+                              K.tag_combine_plain, tag_bytes, check_tag,
+                              (lambda f=lib: f(a, b)) if lib is not None else None))
     return line
 
 
@@ -497,14 +999,19 @@ def main() -> int:
     log("kernels: bit-exact against the plain versions at random shapes")
 
     # ---- 4. main path
-    main_path = run_main_path(dev, build_queries(dev))
+    queries = build_queries(dev)
+    main_path = run_main_path(dev, queries)
     check_main_path(main_path["report"])
     compare_with_cpu(main_path)
 
-    # ---- 5. kernels at main-path shapes
-    kernels = kernels_at_main_path_shapes(
-        main_path["captured"], main_path["report"]["launches"]
-    )
+    # ---- 6. the reasoner at full width, 6b. a small closure, 6c. ops entries
+    lubm = next(db for name, db, _q, _w in queries if name == "q2")
+    closure = run_closure(dev, lubm)
+    run_small_closure(dev)
+    entries = run_ops_entries(dev, lubm, main_path["captured"]["merge_join_keys"][1])
+
+    # ---- 5. kernels at the paths' shapes
+    kernels = kernels_at_main_path_shapes(main_path, closure, entries)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

@@ -2,17 +2,26 @@
 
 SPARQL SELECT over basic graph patterns and FILTERs runs on the device
 engine (scans over the two-tier sorted store, merge-path joins, FILTER
-masks, the worst-case-optimal join for cyclic patterns) with hand-written
-CUDA kernels for the NVIDIA H100.  Every entry point runs on the CUDA card
+masks, the worst-case-optimal join for cyclic patterns), and the Datalog
+reasoner's semi-naive fixpoint runs as device rounds (fused triple-pattern
+scans, merge-path premise joins, sort-unique dedup), with hand-written CUDA
+kernels for the NVIDIA H100.  Every entry point runs on the CUDA card
 unless the caller passes ``device="cpu"``.
 
     from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
     db = SparqlDatabase(device="cpu")
     db.parse_ntriples(...)
     rows = execute_query_volcano("SELECT ...", db)
+
+    from kolibrie_tpu_torch import Reasoner
+    r = Reasoner(device="cpu")
+    r.add_abox_triple("a", "next", "b")
+    r.add_rule(r.rule_from_strings([...], [...]))
+    r.infer_new_facts_semi_naive_parallel()
 """
 
 from kolibrie_tpu_torch.query.executor import Unsupported, execute_query_volcano
 from kolibrie_tpu_torch.query.sparql_database import SparqlDatabase
+from kolibrie_tpu_torch.reasoner.reasoner import Reasoner
 
-__all__ = ["SparqlDatabase", "Unsupported", "execute_query_volcano"]
+__all__ = ["Reasoner", "SparqlDatabase", "Unsupported", "execute_query_volcano"]

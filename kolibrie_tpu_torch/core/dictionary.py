@@ -50,6 +50,18 @@ class Dictionary:
         self.display: List[str] = [""]  # display_form per ID, same order
         self._next_id = 1
 
+    @classmethod
+    def from_terms(cls, terms: Iterable[Optional[str]]) -> "Dictionary":
+        """A dictionary holding another's state: ``terms`` is its term list
+        in ID order (index 0 the NULL slot, ``None``), so every ID keeps
+        its value."""
+        d = cls()
+        d.id_to_str = list(terms)
+        d.str_to_id = {t: i for i, t in enumerate(d.id_to_str) if t is not None}
+        d.display = [display_form(t) for t in d.id_to_str]
+        d._next_id = len(d.id_to_str)
+        return d
+
     def __len__(self) -> int:
         return len(self.str_to_id)
 

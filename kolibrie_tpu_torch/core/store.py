@@ -802,3 +802,28 @@ class ColumnarTripleStore:
     def count(self, s=None, p=None, o=None) -> int:
         ms, _, _ = self.match(s, p, o)
         return len(ms)
+
+    def clone(self) -> "ColumnarTripleStore":
+        """O(1) copy-on-write clone on the same device.  Column arrays, sort
+        orders and device mirrors are never mutated in place once compacted
+        (every mutation path builds new ones and swaps them in), so the clone
+        SHARES them; the first mutation on either side builds new ones
+        without touching the other."""
+        self.compact()
+        c = ColumnarTripleStore(self.device)
+        c._s, c._p, c._o = self._s, self._p, self._o
+        c._orders = dict(self._orders)
+        c._version = self._version  # same state => same version (see __init__)
+        c._base_s, c._base_p, c._base_o = self._base_s, self._base_p, self._base_o
+        c._base_orders = dict(self._base_orders)
+        c._base_version = self._base_version
+        c._delta_add_set = self._delta_add_set  # replaced, never mutated
+        c._delta_del_set = self._delta_del_set
+        c._delta_epoch = self._delta_epoch
+        c._delta_orders = dict(self._delta_orders)
+        c._delta_del_pos = dict(self._delta_del_pos)
+        c._device_segments = dict(self._device_segments)
+        c._device_delta = dict(self._device_delta)
+        c.delta_threshold = self.delta_threshold
+        c.incremental = self.incremental
+        return c

@@ -22,7 +22,13 @@ import torch
 
 from kolibrie_tpu_torch.backend import _LPAD, _RPAD, key1, pack2
 
-__all__ = ["pack2", "pack_key_multi", "join_indices", "join_indices_presorted"]
+__all__ = [
+    "pack2",
+    "pack_key_multi",
+    "join_indices",
+    "join_indices_presorted",
+    "semi_join_mask",
+]
 
 Join = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -96,6 +102,72 @@ def join_indices(
     li = torch.where(valid, row_c, 0)
     ri = torch.where(valid, order[pos.clamp(0, rn - 1)], 0)
     return li, ri, valid, total
+
+
+def semi_join_mask(
+    lkey: torch.Tensor, rkey: torch.Tensor, rvalid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mask over left rows with >= 1 match on the right (EXISTS).  Port of
+    ``kolibrie_tpu/ops/device_join.py::semi_join_mask``."""
+    if rkey.shape[0] == 0:
+        return torch.zeros(lkey.shape[0], dtype=torch.bool, device=lkey.device)
+    if rvalid is not None:
+        rkey = torch.where(rvalid, rkey, _RPAD)
+    rsorted = torch.sort(rkey).values
+    idx = torch.searchsorted(rsorted, lkey).clamp_(0, rkey.shape[0] - 1)
+    return rsorted[idx] == lkey
+
+
+def _row_membership(
+    ours: Sequence[torch.Tensor], theirs: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """For each row of ``ours`` (u32 ID columns): does an equal row exist in
+    ``theirs``?  Progressive pairwise packing keeps keys exact: (a, b, c) ->
+    (pack2(a, b) ranked densely over both sides, then packed with c).  Port
+    of ``kolibrie_tpu/ops/device_join.py::_row_membership``."""
+    if len(ours) == 1:
+        return semi_join_mask(key1(ours[0]), key1(theirs[0]))
+    if len(ours) == 2:
+        return semi_join_mask(pack2(ours[0], ours[1]), pack2(theirs[0], theirs[1]))
+    osp = pack2(ours[0], ours[1])
+    tsp = pack2(theirs[0], theirs[1])
+    sorted_u = torch.sort(torch.cat([osp, tsp])).values
+    rank_o = torch.searchsorted(sorted_u, osp)
+    rank_t = torch.searchsorted(sorted_u, tsp)
+    return semi_join_mask(pack2(rank_o, ours[2]), pack2(rank_t, theirs[2]))
+
+
+_U32PAD = 0xFFFFFFFF
+
+
+def _sort_unique3(cols: Sequence[torch.Tensor], valid: torch.Tensor, cap: int):
+    """Sort-unique of (s, p, o) rows with compaction, in the reference's
+    order.  Port of ``kolibrie_tpu/parallel/dist_fixpoint.py::_sort_unique3``
+    (``lax.sort(num_keys=3)`` over u32 columns).
+
+    torch has no multi-key sort, so the lexicographic unsigned (s, p, o)
+    order takes two stable sorts over int64 carriers: by ``o``, then by
+    ``pack2(s, p)``.  Invalid rows become ``0xFFFFFFFF`` and sink to the
+    end.  Returns ``((us, up, uo), out_valid, n_unique)``: the first
+    ``min(n_unique, cap)`` distinct rows in order, zeros after them, and
+    the exact distinct count as a 0-dim int64 tensor."""
+    dev = valid.device
+    cs = [torch.where(valid, c, _U32PAD) for c in cols]
+    by_o = torch.sort(cs[2], stable=True).indices
+    by_sp = torch.sort(pack2(cs[0][by_o], cs[1][by_o]), stable=True).indices
+    perm = by_o[by_sp]
+    ss, sp, so = (c[perm] for c in cs)
+    isnew = torch.ones_like(valid)
+    isnew[1:] = (ss[1:] != ss[:-1]) | (sp[1:] != sp[:-1]) | (so[1:] != so[:-1])
+    isnew &= ss != _U32PAD
+    dest = torch.where(isnew, torch.cumsum(isnew, 0) - 1, cap).clamp_(max=cap)
+    outs = []
+    for c in (ss, sp, so):
+        out = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        out.index_put_((dest,), c)  # slot ``cap`` takes the dropped rows
+        outs.append(out[:cap])
+    n = isnew.sum()
+    return tuple(outs), torch.arange(cap, device=dev) < n, n
 
 
 def join_indices_presorted(

@@ -1,11 +1,19 @@
 """Binding tables on the host: a dict var -> u32 numpy column, all columns the
 same length.  The device engine reads its results back into this form and
 the executor's post-passes (projection, DISTINCT, ORDER BY, formatting) run
-over it."""
+over it.
+
+The reasoner's host semi-naive strategy (:mod:`kolibrie_tpu_torch.reasoner.
+strategies`) joins binding tables here with ONE vectorized sort-based
+equi-join: pack the shared-variable key columns of both sides into a single
+sort key, sort the right side, ``searchsorted`` each left key for its
+[lo, hi) match range, materialize the pairs with ``repeat`` + range
+arithmetic.  Copy of ``kolibrie_tpu/ops/join.py``.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -18,3 +26,122 @@ def table_len(t: BindingTable) -> int:
     for v in t.values():
         return len(v)
     return 0
+
+
+def multi_key_pack(cols: Sequence[np.ndarray]) -> np.ndarray:
+    """Combine key columns into one sortable u64 key.
+
+    1 column: identity (u64).  2 columns of u32 IDs: exact 64-bit pack.
+    3+ columns: dense-rank composition (exact, via successive unique-inverse),
+    still vectorized.
+    """
+    if len(cols) == 1:
+        return cols[0].astype(np.uint64)
+    if len(cols) == 2:
+        return (cols[0].astype(np.uint64) << np.uint64(32)) | cols[1].astype(np.uint64)
+    key = cols[0].astype(np.uint64)
+    for c in cols[1:]:
+        # dense-rank the accumulated key so the next 32-bit column fits exactly
+        _, inv = np.unique(key, return_inverse=True)
+        key = (inv.astype(np.uint64) << np.uint64(32)) | c.astype(np.uint64)
+    return key
+
+
+def equi_join_tables(left: BindingTable, right: BindingTable) -> BindingTable:
+    """Natural join of two binding tables on their shared variables.
+
+    Returns a new table with the union of columns.  No shared variables ⇒
+    cartesian product.
+    """
+    shared = sorted(set(left.keys()) & set(right.keys()))
+    ln, rn = table_len(left), table_len(right)
+    if ln == 0 or rn == 0:
+        out: BindingTable = {}
+        for k in set(left) | set(right):
+            out[k] = np.empty(0, dtype=np.uint32)
+        return out
+    if not shared:
+        li = np.repeat(np.arange(ln), rn)
+        ri = np.tile(np.arange(rn), ln)
+    else:
+        lkey, rkey = _pack_shared_keys(left, right, shared, ln)
+        li, ri = join_indices(lkey, rkey)
+    out = {}
+    for k, col in left.items():
+        out[k] = col[li]
+    for k, col in right.items():
+        if k not in out:
+            out[k] = col[ri]
+    return out
+
+
+def join_indices(lkey: np.ndarray, rkey: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Row-index pairs (li, ri) with lkey[li] == rkey[ri] — sort-based."""
+    order = np.argsort(rkey, kind="stable")
+    rsorted = rkey[order]
+    lo = np.searchsorted(rsorted, lkey, side="left")
+    hi = np.searchsorted(rsorted, lkey, side="right")
+    counts = hi - lo
+    total = int(counts.sum())
+    if total == 0:
+        z = np.empty(0, dtype=np.int64)
+        return z, z
+    li = np.repeat(np.arange(len(lkey)), counts)
+    # right positions: for each left row, lo[i] .. hi[i]-1
+    starts = np.repeat(lo, counts)
+    offs = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+    ri = order[starts + offs]
+    return li, ri
+
+
+def semi_join_mask(lkey: np.ndarray, rkey: np.ndarray) -> np.ndarray:
+    """Boolean mask over left rows having at least one match in rkey."""
+    if len(rkey) == 0:
+        return np.zeros(len(lkey), dtype=bool)
+    rsorted = np.sort(rkey)
+    idx = np.searchsorted(rsorted, lkey)
+    idx = np.clip(idx, 0, len(rsorted) - 1)
+    return rsorted[idx] == lkey
+
+
+def anti_join_mask(lkey: np.ndarray, rkey: np.ndarray) -> np.ndarray:
+    """Boolean mask over left rows with NO match in rkey (negation-as-failure)."""
+    return ~semi_join_mask(lkey, rkey)
+
+
+def _pack_shared_keys(
+    left: BindingTable, right: BindingTable, shared: List[str], ln: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Comparable join keys for both sides.  <=2 u32 columns pack exactly into
+    u64 per side; 3+ columns use rank composition, which is only comparable
+    when built over the CONCATENATED columns, hence the joint pack + split."""
+    if len(shared) <= 2:
+        return (
+            multi_key_pack([left[v] for v in shared]),
+            multi_key_pack([right[v] for v in shared]),
+        )
+    joint = multi_key_pack([np.concatenate([left[v], right[v]]) for v in shared])
+    return joint[:ln], joint[ln:]
+
+
+def anti_join_tables(left: BindingTable, right: BindingTable) -> BindingTable:
+    """MINUS / NAF semantics: left rows with NO matching right row on the
+    shared variables.  No shared variables ⇒ left unchanged."""
+    shared = sorted(set(left.keys()) & set(right.keys()))
+    ln, rn = table_len(left), table_len(right)
+    if ln == 0 or rn == 0 or not shared:
+        return left
+    lkey, rkey = _pack_shared_keys(left, right, shared, ln)
+    mask = anti_join_mask(lkey, rkey)
+    return {k: v[mask] for k, v in left.items()}
+
+
+def concat_tables(tables: List[BindingTable]) -> BindingTable:
+    tables = [t for t in tables if table_len(t) > 0]
+    if not tables:
+        return {}
+    keys = set(tables[0])
+    out: BindingTable = {}
+    for k in keys:
+        out[k] = np.concatenate([t[k] for t in tables])
+    return out

@@ -1,8 +1,11 @@
 """The device engine's hand-written CUDA kernels, their plain PyTorch
 versions, and the public entries that wrap them.
 
-Port of ``kolibrie_tpu/ops/pallas_kernels.py`` for the three kernels on the
-SPARQL SELECT path.  Each kernel lives in ``kolibrie_tpu_torch/csrc/`` as
+Port of ``kolibrie_tpu/ops/pallas_kernels.py``: the merge-path join (the
+SPARQL engine's and the fixpoint's joins, and the payload entry
+``merge_join``), the WCOJ lex-probe pair, the fused triple-pattern filter
+(the fixpoint's premise scans) and the semiring tag combine.  Each kernel
+lives in ``kolibrie_tpu_torch/csrc/`` as
 CUDA C++ with a plain C interface; :func:`build_kernels` compiles every
 source with ``nvcc`` for ``sm_90a`` (one process per source, all started
 together) into ``kolibrie_tpu_torch/_build/`` at first use, and ``ctypes``
@@ -40,6 +43,9 @@ __all__ = [
     "reset_launches",
     "build_kernels",
     "build_log",
+    "filter_mask",
+    "filter_mask_plain",
+    "merge_join",
     "merge_path",
     "merge_path_plain",
     "merge_join_indices",
@@ -48,6 +54,8 @@ __all__ = [
     "lex_probe_select_plain",
     "lex_probe_validate",
     "lex_probe_validate_plain",
+    "tag_combine",
+    "tag_combine_plain",
 ]
 
 # Output-length granule of the join entries: capacities round up to whole
@@ -58,10 +66,13 @@ LAUNCHES: Dict[str, int] = {
     "merge_path_join": 0,
     "lex_probe_select": 0,
     "lex_probe_validate": 0,
+    "filter_mask": 0,
+    "tag_combine": 0,
 }
 ENTRY_LAUNCHES: Dict[str, int] = {
     "merge_join_indices": 0,
     "ranked_merge_join_indices": 0,
+    "merge_join": 0,
 }
 
 
@@ -78,7 +89,12 @@ def reset_launches() -> None:
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = {"merge_join": "merge_join.cu", "lex_probe": "lex_probe.cu"}
+_SOURCES = {
+    "merge_join": "merge_join.cu",
+    "lex_probe": "lex_probe.cu",
+    "filter_mask": "filter_mask.cu",
+    "tag_combine": "tag_combine.cu",
+}
 _NVCC_FLAGS = [
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -107,6 +123,14 @@ _SIGNATURES = {
         # ok, is_base, ch, host acc table, a_count, p, out, stream
         "kolibrie_lex_probe_validate": [_P, _P, _P, _P, _I, _I, _P, _P],
         "kolibrie_lex_probe_max_accessors": [],
+    },
+    "filter_mask": {
+        # s, p, o, n, s_const, p_const, o_const, active bits, o_op, o_cmp, mask, stream
+        "kolibrie_filter_mask": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "tag_combine": {
+        # a, b, n, op, out, stream
+        "kolibrie_tag_combine": [_P, _P, _I, _I, _P, _P],
     },
 }
 
@@ -204,6 +228,13 @@ def _arg(t: torch.Tensor, dtype: torch.dtype, n: Optional[int] = None) -> int:
     if not t.is_contiguous():
         raise ValueError("kernel operand must be contiguous")
     return t.data_ptr()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary (a view into a column): the elementwise kernels move 16 bytes
+    at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _stream(device: torch.device) -> int:
@@ -374,6 +405,34 @@ def ranked_merge_join_indices(lkey: torch.Tensor, rkey: torch.Tensor, cap: int):
     return li, ri, valid, total
 
 
+def merge_join(
+    lkey: torch.Tensor, lval: torch.Tensor, rkey: torch.Tensor, rval: torch.Tensor, cap: int
+):
+    """Equi-join of two u32 runs with payloads, on the merge-path kernel.
+    Port of ``pallas_kernels.merge_join``.
+
+    ``rkey`` must be sorted ascending (``lkey`` in any order); keys and
+    payloads are int64 carriers of u32 values.  Returns ``(key, lval, rval,
+    valid, total)``: the joined key and both payloads of every match as a
+    prefix, zeros past it, length ``cap`` rounded up to a multiple of 1024,
+    and the exact match count.  The right payload is gathered at the
+    kernel's right row index."""
+    cap_r = _round_out(cap)
+    dev = lkey.device
+    if lkey.shape[0] == 0 or rkey.shape[0] == 0:
+        z = torch.zeros(cap_r, dtype=torch.int64, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return z, z.clone(), z.clone(), torch.zeros(cap_r, dtype=torch.bool, device=dev), zero
+    li, ri, valid, total = _merge_join_core(lkey, rkey, cap_r, "merge_join")
+    return (
+        torch.where(valid, lkey[li], 0),
+        torch.where(valid, lval[li], 0),
+        torch.where(valid, rval[ri], 0),
+        valid,
+        total,
+    )
+
+
 # ---------------------------------------------------------------------------
 # WCOJ lex-probe pair
 # ---------------------------------------------------------------------------
@@ -490,6 +549,156 @@ def lex_probe_validate(ok, is_base, ch, accessors):
     )
     _check(err, "lex_probe_validate")
     LAUNCHES["lex_probe_validate"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused triple-pattern filter
+# ---------------------------------------------------------------------------
+#
+# Replaces kolibrie_tpu/ops/pallas_kernels.py:_filter_kernel.  One pass over
+# the ID columns, mask out; only the columns of active clauses are read.
+# Bound on the H100: bytes (8 per active column and row, plus the 1-byte
+# mask).  The int64 carriers double the column bytes of the reference's u32.
+
+# o_op codes: the reference's _OPS (eq, ne, lt, le, gt, ge); -1 is no compare
+_FILTER_CMP = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
+_U32_MAX = 0xFFFFFFFF
+
+
+def _filter_args(s_const, p_const, o_const, o_op, o_cmp) -> None:
+    for name, c in (("s_const", s_const), ("p_const", p_const), ("o_const", o_const)):
+        if not -1 <= c <= _U32_MAX:
+            raise ValueError(f"{name}={c}: a u32 ID or -1 (wildcard)")
+    if not -1 <= o_op < len(_FILTER_CMP):
+        raise ValueError(f"o_op={o_op}: -1 or 0..5 (eq, ne, lt, le, gt, ge)")
+    if not 0 <= o_cmp <= _U32_MAX:
+        raise ValueError(f"o_cmp={o_cmp}: a u32 value")
+
+
+def filter_mask_plain(s, p, o, s_const=-1, p_const=-1, o_const=-1, o_op=-1, o_cmp=0):
+    """Plain PyTorch version of the filter kernel (same mask)."""
+    m = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    for col, c in ((s, s_const), (p, p_const), (o, o_const)):
+        if c >= 0:
+            m &= col == c
+    if o_op >= 0:
+        m &= _FILTER_CMP[o_op](o, o_cmp)
+    return m
+
+
+def filter_mask(
+    s: torch.Tensor,
+    p: torch.Tensor,
+    o: torch.Tensor,
+    s_const: int = -1,
+    p_const: int = -1,
+    o_const: int = -1,
+    o_op: int = -1,
+    o_cmp: int = 0,
+) -> torch.Tensor:
+    """Fused triple-pattern + comparison filter over ID columns.  Port of
+    ``pallas_kernels.filter_mask``.
+
+    ``s``/``p``/``o`` are int64 carriers of u32 IDs; a constant of ``-1`` is
+    a wildcard, any other a u32 ID the column must equal.  ``o_op`` (0..5:
+    eq, ne, lt, le, gt, ge; -1 none) adds one unsigned comparison of the
+    object against ``o_cmp``.  Returns the bool mask."""
+    _filter_args(s_const, p_const, o_const, o_op, o_cmp)
+    if not _on_cuda(s, p, o):
+        return filter_mask_plain(s, p, o, s_const, p_const, o_const, o_op, o_cmp)
+    n = s.shape[0]
+    s, p, o = (_aligned(c) for c in (s, p, o))
+    active = int(s_const >= 0) | int(p_const >= 0) << 1 | int(o_const >= 0) << 2
+    mask = torch.empty(n, dtype=torch.bool, device=s.device)
+    err = _lib("filter_mask").kolibrie_filter_mask(
+        _arg(s, torch.int64, n),
+        _arg(p, torch.int64, n),
+        _arg(o, torch.int64, n),
+        n,
+        max(s_const, 0),
+        max(p_const, 0),
+        max(o_const, 0),
+        active,
+        o_op,
+        o_cmp,
+        mask.data_ptr(),
+        _stream(s.device),
+    )
+    _check(err, "filter_mask")
+    LAUNCHES["filter_mask"] += 1
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# semiring tag combine
+# ---------------------------------------------------------------------------
+#
+# Replaces kolibrie_tpu/ops/pallas_kernels.py:_tag_kernel_factory.
+# Elementwise over f32 tag columns; bound on the H100: bytes (12 a row).
+# The same bits as the reference's XLA ops: min/max propagate NaN and order
+# -0 below +0; noisy-or rounds 1 - a and 1 - b, then 1 - (1 - a)(1 - b)
+# once, as the fused multiply-add XLA contracts it into.
+
+_TAG_OPS = ("min", "max", "mul", "noisy_or")
+
+
+def _one_minus_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``1 - x*y`` of float32 columns rounded once to float32, as a fused
+    multiply-add gives it.  The product is exact in float64; the
+    difference is rounded to odd there (Fast2Sum recovers its rounding
+    error exactly, and an even result with a nonzero error moves one step
+    toward it), and rounding to odd at 53 bits and then to nearest at 24
+    is the one correct rounding."""
+    prod = x.double() * y.double()
+    hi = 1.0 - prod
+    err = -prod - (hi - 1.0)  # 1 - prod == hi + err, exactly
+    # one step of the bit pattern toward err: up in magnitude when err and
+    # hi share their sign (NaN and infinities stay as they are: err is NaN)
+    step = (err > 0).to(torch.int64) - (err < 0).to(torch.int64)
+    bits = hi.view(torch.int64)
+    bits = torch.where((bits & 1) == 0, bits + torch.where(hi < 0, -step, step), bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def tag_combine_plain(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """Plain PyTorch version of the tag kernel (same bits)."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    if op == "min":
+        return torch.where((a < b) | torch.isnan(a) | ((a == b) & torch.signbit(a)), a, b)
+    if op == "max":
+        return torch.where((a > b) | torch.isnan(a) | ((a == b) & ~torch.signbit(a)), a, b)
+    if op == "mul":
+        return a * b
+    if op == "noisy_or":
+        return _one_minus_product(1.0 - a, 1.0 - b)
+    raise ValueError(f"unknown tag op {op!r}")
+
+
+def tag_combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """Vectorized semiring combine on f32 tag columns.  Port of
+    ``pallas_kernels.tag_combine``: ``min``/``max`` serve MinMaxProbability
+    and ExpirationProvenance, ``mul``/``noisy_or`` (``1 - (1-a)(1-b)``)
+    AddMultProbability.  Inputs are cast to float32; an unknown ``op``
+    raises ``ValueError``."""
+    if op not in _TAG_OPS:
+        raise ValueError(f"unknown tag op {op!r}")
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    if not _on_cuda(a, b):
+        return tag_combine_plain(a, b, op)
+    n = a.shape[0]
+    a, b = _aligned(a), _aligned(b)
+    out = torch.empty(n, dtype=torch.float32, device=a.device)
+    err = _lib("tag_combine").kolibrie_tag_combine(
+        _arg(a, torch.float32, n),
+        _arg(b, torch.float32, n),
+        n,
+        _TAG_OPS.index(op),
+        out.data_ptr(),
+        _stream(a.device),
+    )
+    _check(err, "tag_combine")
+    LAUNCHES["tag_combine"] += 1
     return out
 
 

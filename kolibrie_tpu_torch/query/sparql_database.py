@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from kolibrie_tpu_torch.backend import DeviceLike, resolve_device
-from kolibrie_tpu_torch.core.dictionary import Dictionary, display_form
+from kolibrie_tpu_torch.core.dictionary import Dictionary
 from kolibrie_tpu_torch.core.quoted import QuotedTripleStore
 from kolibrie_tpu_torch.core.store import ColumnarTripleStore
 from kolibrie_tpu_torch.core.triple import Triple
@@ -157,11 +157,7 @@ class SparqlDatabase:
         ``s``/``p``/``o`` are u32 columns with deletions already applied.
         Dictionary IDs, and hence every sort order, match the source's."""
         db = cls(device)
-        d = db.dictionary
-        d.id_to_str = list(terms)
-        d.str_to_id = {t: i for i, t in enumerate(d.id_to_str) if t is not None}
-        d.display = [display_form(t) for t in d.id_to_str]
-        d._next_id = len(d.id_to_str)
+        db.dictionary = Dictionary.from_terms(terms)
         db.store.add_batch(
             np.asarray(s, np.uint32), np.asarray(p, np.uint32), np.asarray(o, np.uint32)
         )

@@ -31,6 +31,13 @@ rows = port.execute_query_volcano(
     "SELECT ?x ?y ?g WHERE { ?x <http://e/knows> ?y . ?x <http://e/age> ?g }", db
 )
 assert rows == [["http://e/a", "http://e/b", "30"]], rows
+r = port.Reasoner(device="cpu")
+for i in range(6):
+    r.add_abox_triple(f"n{i}", "next", f"n{i + 1}")
+r.add_rule(r.rule_from_strings(
+    [("?x", "next", "?y"), ("?y", "next", "?z")], [("?x", "next", "?z")]))
+r.add_rule(r.rule_from_strings([("?x", "next", "?y")], [("?y", "prev", "?x")]))
+assert r.infer_new_facts_device() == 15 + 21, len(r)
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -42,6 +49,12 @@ except RuntimeError as e:
     assert "CUDA" in str(e)
 else:
     raise AssertionError("no device and no CUDA card must raise")
+try:
+    port.Reasoner()
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("a reasoner without a device and no CUDA card must raise")
 print("guard-ok")
 """
 

@@ -326,3 +326,200 @@ def test_lex_probe_validate_matches_jax(a_count):
         ],
     )
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# ------------------------------------------------------------ merge_join (payload)
+
+
+@pytest.mark.parametrize("name", MERGE_CASES)
+def test_merge_join_matches_jax(name):
+    lk, rk, cap, _, _ = _case(name)
+    rng = np.random.default_rng(50 + MERGE_CASES.index(name))
+    lv = rng.integers(0, 2**32, lk.shape[0], dtype=np.uint64).astype(np.uint32)
+    rv = rng.integers(0, 2**32, rk.shape[0], dtype=np.uint64).astype(np.uint32)
+    jout = [np.asarray(x) for x in jpk.merge_join(*map(jnp.asarray, (lk, lv, rk, rv)), cap)]
+    tout = tk.merge_join(t64(lk), t64(lv), t64(rk), t64(rv), cap)
+    assert int(tout[4]) == int(jout[4])
+    np.testing.assert_array_equal(tout[3].numpy(), jout[3])
+    for t, j in zip(tout[:3], jout[:3]):
+        np.testing.assert_array_equal(t.numpy(), j.astype(np.int64))
+
+
+# --------------------------------------------------------------- filter_mask
+
+_HIGH = [0, 5, 0x7FFFFFFF, 0x80000000, 0x90000001, 0xFFFFFFFE, 0xFFFFFFFF]
+
+
+def _filter_cols(seed, n=700):
+    rng = np.random.default_rng(seed)
+    cols = [rng.choice(np.array(_HIGH, np.uint32), n) for _ in range(3)]
+    cols[1][::3] = rng.integers(0, 4, len(cols[1][::3]))
+    return cols
+
+
+FILTER_CASES = [
+    dict(),  # every clause a wildcard
+    dict(s_const=0x90000001),
+    dict(p_const=2, o_const=0x80000000),
+    dict(s_const=5, p_const=1, o_const=0xFFFFFFFE),
+    dict(s_const=0xFFFFFFFF),  # the never-match constant
+    *[dict(o_op=op, o_cmp=0x80000000) for op in range(6)],
+    *[dict(p_const=3, o_op=op, o_cmp=5) for op in range(6)],
+    dict(s_const=0, o_op=5, o_cmp=0xFFFFFFFF),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FILTER_CASES)))
+def test_filter_mask_matches_jax(case):
+    kw = FILTER_CASES[case]
+    s, p, o = _filter_cols(60 + case)
+    jm = np.asarray(jpk.filter_mask(*map(jnp.asarray, (s, p, o)), **kw))
+    tm = tk.filter_mask(t64(s), t64(p), t64(o), **kw)
+    np.testing.assert_array_equal(tm.numpy(), jm)
+    np.testing.assert_array_equal(tk.filter_mask_plain(t64(s), t64(p), t64(o), **kw).numpy(), jm)
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(s_const=2**32), dict(p_const=-2), dict(o_op=6), dict(o_op=1, o_cmp=-1)]
+)
+def test_filter_mask_rejects_out_of_range_arguments(kw):
+    z = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tk.filter_mask(z, z, z, **kw)
+
+
+# --------------------------------------------------------------- tag_combine
+
+
+def _tags(seed, n=1000):
+    rng = np.random.default_rng(seed)
+    a = rng.random(n).astype(np.float32)
+    b = rng.random(n).astype(np.float32)
+    # NaN on either side, 0 and 1, and both orders of -0.0 against 0.0
+    special = np.array([0.0, 1.0, np.nan, -0.0, 0.5, 1.0, np.nan, 0.0, -0.0, 0.0], np.float32)
+    a[:10], b[:10] = special, np.array(
+        [0.0, np.nan, 1.0, 0.5, -0.0, np.nan, 1.0, -0.0, 0.0, -0.0], np.float32
+    )
+    return a, b
+
+
+def _ulps(x, y):
+    """Distance in units in the last place between float32 arrays (NaN
+    against NaN is 0): their int32 patterns on one monotone scale."""
+    def key(v):
+        i = v.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    both_nan = np.isnan(x) & np.isnan(y)
+    return np.where(both_nan, 0, np.abs(key(x) - key(y)))
+
+
+@pytest.mark.parametrize("op", ["min", "max", "mul", "noisy_or"])
+def test_tag_combine_matches_jax(op):
+    a, b = _tags(70 + ["min", "max", "mul", "noisy_or"].index(op))
+    want = np.asarray(jpk.tag_combine(jnp.asarray(a), jnp.asarray(b), op))
+    got = tk.tag_combine(torch.from_numpy(a), torch.from_numpy(b), op).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(a) | np.isnan(b))
+    # every op bit for bit, the sign of a zero included (min(0, -0) and
+    # min(-0, 0) are -0, max of them +0): 0 ulp
+    assert _ulps(got, want).max() == 0
+    np.testing.assert_array_equal(np.signbit(got[~np.isnan(got)]), np.signbit(want[~np.isnan(want)]))
+    if op == "noisy_or":
+        # the reference's XLA form rounds 1 - (1-a)(1-b) once (a fused
+        # multiply-add); rounding the product first, as separate float32
+        # operations do, is up to 7 ulp away on these inputs
+        one = np.float32(1.0)
+        assert _ulps(one - (one - a) * (one - b), want).max() == 7
+    # f64 inputs are cast to float32 first
+    got64 = tk.tag_combine(torch.from_numpy(a.astype(np.float64)), torch.from_numpy(b), op)
+    assert got64.dtype == torch.float32
+    np.testing.assert_array_equal(got64.numpy().view(np.int32), got.view(np.int32))
+
+
+def test_one_minus_product_rounds_once():
+    """Products whose float64 value leaves ``1 - x*y`` exactly on a
+    float32 midpoint that the exact value is not on: rounding through
+    float64 to nearest and then to float32 goes wrong about half the time;
+    the port's round-to-odd gives the one correct rounding throughout."""
+    from fractions import Fraction
+
+    xs, ys = [], []
+    for m1 in range(2**23 + 1, 2**24, 2):
+        inv = pow(m1, -1, 2**30)  # m1 * inv = A * 2^30 + 1
+        if 2**23 <= inv < 2**24 and (m1 * inv >> 30) & 1:
+            xs.append(m1 * 2.0**-24)
+            ys.append(inv * 2.0**-31)
+            if len(xs) == 64:
+                break
+    x, y = np.array(xs, np.float32), np.array(ys, np.float32)
+    got = tk._one_minus_product(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+
+    def nearest(fr):
+        c = np.float32(float(fr))
+        near = [np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf))]
+        return min(near, key=lambda v: (abs(Fraction(float(v)) - fr), int(v.view(np.int32)) & 1))
+
+    want = np.array(
+        [nearest(1 - Fraction(float(u)) * Fraction(float(v))) for u, v in zip(x, y)], np.float32
+    )
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    twice = (1.0 - x.astype(np.float64) * y.astype(np.float64)).astype(np.float32)
+    assert (twice.view(np.int32) != want.view(np.int32)).sum() > 16
+
+
+def test_tag_combine_unknown_op_raises():
+    z = torch.zeros(4)
+    with pytest.raises(ValueError):
+        tk.tag_combine(z, z, "xor")
+
+
+# ---------------------------------------------- fixpoint dedup and membership
+
+from kolibrie_tpu.parallel import dist_fixpoint as jdist  # noqa: E402
+
+
+def _rows(rng, n, hi):
+    cols = [rng.integers(0, hi, n).astype(np.uint32) for _ in range(3)]
+    cols[0][rng.random(n) < 0.1] |= np.uint32(1 << 31)
+    cols[2][rng.random(n) < 0.1] |= np.uint32(1 << 31)
+    return cols
+
+
+@pytest.mark.parametrize("cap", [16, 64, 512])
+def test_sort_unique3_matches_jax(cap):
+    rng = np.random.default_rng(80 + cap)
+    cols = _rows(rng, 300, 4)
+    valid = rng.random(300) < 0.8
+    (js, jp, jo), jv, jn = jdist._sort_unique3(
+        tuple(jnp.asarray(c) for c in cols), jnp.asarray(valid), cap
+    )
+    (ts, tp, to), tv, tn = tdj._sort_unique3([t64(c) for c in cols], torch.from_numpy(valid), cap)
+    assert int(tn) == int(jn)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    for t, j in zip((ts, tp, to), (js, jp, jo)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j).astype(np.int64))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3])
+def test_row_membership_matches_jax(width):
+    rng = np.random.default_rng(90 + width)
+    ours = _rows(rng, 400, 3)[:width]
+    theirs = _rows(rng, 250, 3)[:width]
+    ours[0][:20] = 0xFFFFFFFE
+    theirs[0][:20] = SENT
+    with enable_x64(True):
+        jm = np.asarray(jdj._row_membership([jnp.asarray(c) for c in ours],
+                                            [jnp.asarray(c) for c in theirs]))
+    tm = tdj._row_membership([t64(c) for c in ours], [t64(c) for c in theirs])
+    np.testing.assert_array_equal(tm.numpy(), jm)
+    assert jm.any() and not jm.all()
+
+
+def test_semi_join_mask_matches_jax():
+    rng = np.random.default_rng(99)
+    lk, _ = _u64_keys(rng, 300, 20, 0.9, U64_LPAD)
+    rk, rv = _u64_keys(rng, 200, 20, 1.0, U64_RPAD)
+    rv = rng.random(200) < 0.7
+    jm = np.asarray(jdj.semi_join_mask(lk, rk, rv))
+    tm = tdj.semi_join_mask(carrier(lk), carrier(rk), torch.from_numpy(rv))
+    np.testing.assert_array_equal(tm.numpy(), jm)
