@@ -3,14 +3,20 @@ card.
 
     python3 chip_profile.py
 
-Builds the same data and queries as ``chip_smoke.py`` (employee-100K join,
-LUBM-1000 Q2, Q9, Q9 under ``KOLIBRIE_WCOJ=off``).  For each query: one
-cold run (capacity convergence), one warm run with timers around planning
-(``Streamertail.find_best_plan``), the device engine (``LoweredPlan.execute``,
-synchronised) and result decoding (``format_results``), then a second warm
-run under ``torch.profiler`` for the device's busy time (``busy_share`` is
-that over the timed run's wall) and the operators whose kernels took the
-most of it.  Then the same for the reasoner's LUBM-1000 closure
+Builds the same data and queries as ``chip_smoke.py``: phase 4's
+employee-100K join, LUBM-1000 Q2, Q9 and Q9 under ``KOLIBRIE_WCOJ=off``,
+and phase 4b's SELECT-surface queries (``SURFACE_QUERIES``).  For each
+query: one cold run (capacity convergence), one warm run with timers around
+planning (``Streamertail.find_best_plan``), the device engine
+(``LoweredPlan.execute``, synchronised: the plain and fused routes), the
+device plan runs alone (``LoweredPlan.run``, synchronised: every route),
+the device aggregate with its readback and number encoding
+(``aggregate_table``; the encoding alone: ``_encode_numbers``), the device
+top-k (``_order_limit``, synchronised),
+the string ranks (``device_string_ranks``) and result decoding
+(``format_results``), then a second warm run under ``torch.profiler`` for
+the device's busy time (``busy_share`` is that over the timed run's wall)
+and the operators whose kernels took the most of it.  Then the same for the reasoner's LUBM-1000 closure
 (``chip_smoke.py`` phase 6): one cold run, one warm run with a timer
 around every device round (``device_fixpoint._fixpoint_round``, which ends
 in the round's one host read), then a warm run under ``torch.profiler``.
@@ -43,7 +49,7 @@ def profile_query(name: str, db, sparql: str, wcoj: str) -> dict:
             try:
                 return fn(*a, **k)
             finally:
-                if phase == "engine":
+                if phase in ("engine", "device_plan", "topk"):
                     torch.cuda.synchronize()
                 spent[phase] = spent.get(phase, 0.0) + (time.perf_counter() - t) * 1e3
 
@@ -52,10 +58,19 @@ def profile_query(name: str, db, sparql: str, wcoj: str) -> dict:
     os.environ["KOLIBRIE_WCOJ"] = wcoj
     try:
         execute_query_volcano(sparql, db)  # cold: capacity convergence
-        orig = (PL.Streamertail.find_best_plan, DE.LoweredPlan.execute, EX.format_results)
-        PL.Streamertail.find_best_plan = timed("plan", orig[0])
-        DE.LoweredPlan.execute = timed("engine", orig[1])
-        EX.format_results = timed("format", orig[2])
+        patched = [
+            (PL.Streamertail, "find_best_plan", "plan"),
+            (DE.LoweredPlan, "execute", "engine"),
+            (DE.LoweredPlan, "run", "device_plan"),
+            (DE, "aggregate_table", "aggregate"),
+            (EX, "_encode_numbers", "encode_numbers"),
+            (DE, "_order_limit", "topk"),
+            (DE, "device_string_ranks", "string_ranks"),
+            (EX, "format_results", "format"),
+        ]
+        orig = [getattr(owner, attr) for owner, attr, _ph in patched]
+        for (owner, attr, phase), fn in zip(patched, orig):
+            setattr(owner, attr, timed(phase, fn))
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -63,7 +78,8 @@ def profile_query(name: str, db, sparql: str, wcoj: str) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
         finally:
-            PL.Streamertail.find_best_plan, DE.LoweredPlan.execute, EX.format_results = orig
+            for (owner, attr, _ph), fn in zip(patched, orig):
+                setattr(owner, attr, fn)
         prof = device_profile(lambda: execute_query_volcano(sparql, db))
     finally:
         os.environ.pop("KOLIBRIE_WCOJ", None)
@@ -161,7 +177,13 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import build_queries, card_line
+    from chip_smoke import (
+        SURFACE_PREFIXES,
+        SURFACE_QUERIES,
+        build_queries,
+        card_line,
+        surface_databases,
+    )
     from torch.profiler import ProfilerActivity, profile
 
     from kolibrie_tpu_torch.ops import kernels as K
@@ -177,6 +199,11 @@ def main() -> int:
     for name, db, sparql, wcoj in queries:
         out.append(profile_query(name, db, sparql, wcoj))
         print(json.dumps(out[-1]), flush=True)
+    dbs = surface_databases(dev, queries)
+    for name, (which, sparql) in SURFACE_QUERIES.items():
+        out.append(profile_query(name, dbs[which], SURFACE_PREFIXES + sparql, "auto"))
+        print(json.dumps(out[-1]), flush=True)
+    del dbs
     closure = profile_closure(next(db for name, db, _q, _w in queries if name == "q2"))
     print(json.dumps(closure), flush=True)
     print(card)

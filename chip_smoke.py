@@ -24,6 +24,19 @@ result line):
             asserted and rows must equal the port's own run on the CPU.
             Launch counters are zeroed just before and read just after;
             each query's warm run must launch the kernels of its route.
+4b. SELECT surface — over the same LUBM-1000 and employee databases, plus
+            a copy of the LUBM columns with ``<< ?x ub:advisor ?p >>
+            ub:since "<year>"`` for each of the 160,000 graduate students:
+            UNION + OPTIONAL + MINUS, two GROUP BY counts (one over a
+            triangle, through WCOJ), ORDER BY DESC LIMIT 100, VALUES, an
+            RDF-star quoted pattern, and COUNT/SUM/AVG/MIN/MAX/SAMPLE per
+            employer, each cold and then warm (``SURFACE_QUERIES``).  Counts
+            asserted; each run must take the JAX package's route
+            (``SURFACE_ROUTES``: the fused device program, the device
+            aggregate or the device top-k, never a host post-pass) and the
+            warm run must launch the kernels of its plan
+            (``SURFACE_LAUNCHES``); rows, routes and plans must equal the
+            port's CPU run.  Counters zeroed just before, read just after.
 6. reasoner — the Datalog closure of ``benches/bench_lubm.py`` (transitive
             ``subOrganizationOf`` + ``memberOf`` propagation) over the same
             LUBM-1000 columns, through ``Reasoner.
@@ -97,6 +110,201 @@ SELECT ?employee ?workplaceHomepage ?salary WHERE {
     ?employee foaf:workplaceHomepage ?workplaceHomepage .
     ?employee ds:annual_salary ?salary
 }"""
+
+# ---- phase 4b: the rest of the SELECT surface
+SURFACE_PREFIXES = """PREFIX rdf: <http://www.w3.org/1999/02/22-rdf-syntax-ns#>
+PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>
+PREFIX foaf: <http://xmlns.com/foaf/0.1/>
+PREFIX ds: <https://data.example/ontology#>
+"""
+# (database, query): "lubm" is phase 4's LUBM database, "quoted" the same
+# columns plus one annotation per graduate student, "employee" phase 4's
+# employee database
+SURFACE_QUERIES = {
+    "clauses": ("lubm", "SELECT ?x ?d ?y WHERE { ?x ub:memberOf ?d . "
+                "{ ?x rdf:type ub:GraduateStudent } UNION { ?x rdf:type ub:UndergraduateStudent } "
+                "OPTIONAL { ?x ub:undergraduateDegreeFrom ?y } "
+                "MINUS { ?x ub:undergraduateDegreeFrom ?u . ?d ub:subOrganizationOf ?u } }"),
+    "agg_dept": ("lubm", "SELECT ?d (COUNT(?x) AS ?n) WHERE { ?x ub:memberOf ?d . "
+                 "?x rdf:type ub:GraduateStudent } GROUP BY ?d"),
+    "agg_triangle": ("lubm", "SELECT ?p (COUNT(?x) AS ?n) WHERE { ?x ub:advisor ?p . "
+                     "?x ub:takesCourse ?c . ?p ub:teacherOf ?c } GROUP BY ?p"),
+    "topk": ("lubm", "SELECT ?x ?c WHERE { ?x ub:takesCourse ?c . "
+             "?x rdf:type ub:GraduateStudent } ORDER BY DESC(?x) LIMIT 100"),
+    "values": ("lubm", "SELECT ?x ?d WHERE { VALUES ?d { <http://www.Department0.University0.edu> "
+               "<http://www.Department3.University1.edu> } ?x ub:memberOf ?d . "
+               "?x rdf:type ub:GraduateStudent }"),
+    "quoted": ("quoted", "SELECT ?x ?y WHERE { << ?x ub:advisor ?p >> ub:since ?y . "
+               "?x rdf:type ub:GraduateStudent }"),
+    "emp_agg": ("employee", "SELECT ?h (COUNT(?e) AS ?n) (SUM(?s) AS ?sum) (AVG(?s) AS ?avg) "
+                "(MIN(?s) AS ?lo) (MAX(?s) AS ?hi) (SAMPLE(?e) AS ?one) WHERE { "
+                "?e foaf:workplaceHomepage ?h . ?e ds:annual_salary ?s } GROUP BY ?h"),
+}
+# The route each query must take, as the JAX package routes it: "fused" =
+# one device program with the UNION/OPTIONAL/MINUS inside it, "device" =
+# one device program (no clauses to fuse), "aggregated" = the device
+# segment-reduce, "ordered" = the device top-k.  No host post-pass.
+SURFACE_ROUTES = {
+    "clauses": "fused", "agg_dept": "aggregated", "agg_triangle": "aggregated",
+    "topk": "ordered", "values": "device", "quoted": "device", "emp_agg": "aggregated",
+}
+# Kernel launches of one run of each query's plan, from the port's own
+# lowering on the CPU (``tests/test_torch_clauses.py`` holds this table
+# against it at LUBM-3; phase 4b against the CPU run at full size).
+SURFACE_LAUNCHES = {
+    # union join and MINUS-branch join presorted, OPTIONAL ranked
+    "clauses": {"merge_path_join": 3, "merge_join_indices": 2, "ranked_merge_join_indices": 1},
+    "agg_dept": {"merge_path_join": 1, "merge_join_indices": 1},
+    "agg_triangle": {"lex_probe_select": 3, "lex_probe_validate": 3},  # WCOJ, 3 levels
+    "topk": {"merge_path_join": 1, "merge_join_indices": 1},
+    "values": {"merge_path_join": 2, "merge_join_indices": 2},
+    "quoted": {"merge_path_join": 1, "merge_join_indices": 1},
+    "emp_agg": {"merge_path_join": 1, "merge_join_indices": 1},
+}
+SINCE_YEARS = 20  # "<year>" literals of the advisor annotations
+
+
+def surface_expected(universities: int, q2_rows: int, employees: int) -> dict:
+    """What each phase-4b query must return at ``universities`` (LUBM has
+    640 students, 160 of them graduate students, 8 departments and 96
+    professors per university; ``q2_rows`` = LUBM Q2's count there)."""
+    students, grads = 640 * universities, 160 * universities
+    return {
+        # every student less the Q2 rows; ?y bound for the graduate
+        # students outside Q2
+        "clauses": {"rows": students - q2_rows, "y_bound": grads - q2_rows},
+        "agg_dept": {"rows": 8 * universities, "each": 20},
+        "agg_triangle": {"rows": 96 * universities, "sum": grads * 4},
+        "topk": {"rows": 100},
+        "values": {"rows": 40},
+        "quoted": {"rows": grads},
+        "emp_agg": {"rows": min(employees, 500)},
+    }
+
+
+def annotate_advisors(db) -> int:
+    """Add ``<< ?x ub:advisor ?p >> ub:since "<year>"`` for every graduate
+    student's advisor triple, interning the quoted triples by ID (no
+    parsing).  Works on either package's database.  Returns the count."""
+    import numpy as np
+
+    from benches.lubm import RDF_TYPE, UB
+
+    enc = db.dictionary.encode
+    s, p, o = db.store.columns()
+    grads = s[(p == enc(RDF_TYPE)) & (o == enc(UB + "GraduateStudent"))]
+    adv = (p == enc(UB + "advisor")) & np.isin(s, grads)
+    qids = np.array(
+        [db.quoted.intern(int(a), int(b), int(c)) for a, b, c in zip(s[adv], p[adv], o[adv])],
+        dtype=np.uint32,
+    )
+    years = np.array([enc(f'"{2000 + y}"') for y in range(SINCE_YEARS)], dtype=np.uint32)
+    db.store.add_batch(
+        qids,
+        np.full(len(qids), enc(UB + "since"), dtype=np.uint32),
+        years[np.arange(len(qids)) % SINCE_YEARS],
+    )
+    return len(qids)
+
+
+def plan_launches(root) -> dict:
+    """Kernel launches of one run of a lowered plan's spec tree: the
+    merge-path kernel per join (and its entry), the lex-probe pair per WCOJ
+    level."""
+    from collections import Counter
+
+    from kolibrie_tpu_torch.optimizer import device_engine as DE
+
+    counts = Counter()
+
+    def walk(node):
+        if isinstance(node, DE.JoinSpec):
+            counts["merge_path_join"] += 1
+            counts["merge_join_indices" if node.rsorted else "ranked_merge_join_indices"] += 1
+        elif isinstance(node, DE.LeftOuterSpec):
+            counts["merge_path_join"] += 1
+            counts["ranked_merge_join_indices"] += 1
+        elif isinstance(node, DE.WcojSpec):
+            counts["lex_probe_select"] += len(node.levels)
+            counts["lex_probe_validate"] += len(node.levels)
+        DE._map_children(node, walk)
+        return node
+
+    walk(root)
+    return dict(counts)
+
+
+class RouteSpy:
+    """Records how ``execute_query_volcano`` answered: the spec tree of
+    every device plan run, whether it fused the clauses, whether a host
+    clause post-pass ran, and whether the aggregate / ordered device routes
+    served the query."""
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.optimizer import device_engine as DE
+        from kolibrie_tpu_torch.query import executor as E
+
+        self.runs, self.post_passes, self.routes = [], 0, []
+        self._saved = (DE.LoweredPlan.run, E._clause_post_passes,
+                       E.try_device_execute_aggregated, E.try_device_execute_ordered)
+        run, post, agg, ordered = self._saved
+        spy = self
+
+        def run_rec(lowered):
+            spy.runs.append((lowered.root, lowered.fused_clauses))
+            return run(lowered)
+
+        def post_rec(*a):
+            spy.post_passes += 1
+            return post(*a)
+
+        def agg_rec(*a, **k):
+            out = agg(*a, **k)
+            if out is not None:
+                spy.routes.append("aggregated")
+            return out
+
+        def ordered_rec(*a, **k):
+            out = ordered(*a, **k)
+            if out is not None:
+                spy.routes.append("ordered")
+            return out
+
+        DE.LoweredPlan.run = run_rec
+        E._clause_post_passes = post_rec
+        E.try_device_execute_aggregated = agg_rec
+        E.try_device_execute_ordered = ordered_rec
+        return self
+
+    def __exit__(self, *exc):
+        from kolibrie_tpu_torch.optimizer import device_engine as DE
+        from kolibrie_tpu_torch.query import executor as E
+
+        (DE.LoweredPlan.run, E._clause_post_passes,
+         E.try_device_execute_aggregated, E.try_device_execute_ordered) = self._saved
+        return False
+
+    def route(self) -> str:
+        """The route of the one query run under this spy."""
+        if self.post_passes or len(set(self.routes)) > 1:
+            return "host post-pass"
+        if self.routes:
+            return self.routes[0]
+        if self.runs and all(fused for _root, fused in self.runs):
+            return "fused"
+        return "device" if self.runs else "none"
+
+    def launches(self) -> dict:
+        """Kernel launches of the distinct plans run (one run each)."""
+        out = {}
+        seen = set()
+        for root, _fused in self.runs:
+            if root in seen:
+                continue
+            seen.add(root)
+            for k, n in plan_launches(root).items():
+                out[k] = out.get(k, 0) + n
+        return out
 
 
 def log(msg: str) -> None:
@@ -605,18 +813,27 @@ def check_main_path(report: dict) -> None:
             raise AssertionError(f"{k} never reached its kernel on the main path")
 
 
-def compare_with_cpu(main_path: dict) -> None:
+def cpu_twin(db):
+    """The port on the CPU holding ``db``'s state (IDs included)."""
+    from kolibrie_tpu_torch import SparqlDatabase
+
+    return SparqlDatabase.from_arrays(
+        db.dictionary.id_to_str, *db.store.columns(), quoted=dict(db.quoted.items()),
+        device="cpu",
+    )
+
+
+def compare_with_cpu(main_path: dict) -> dict:
     """Run the same queries through the port on the CPU (the kernels'
-    plain versions) and require identical rows."""
-    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    plain versions) and require identical rows.  Returns the CPU twins by
+    ``id`` of the card database."""
+    from kolibrie_tpu_torch import execute_query_volcano
 
     t0 = time.perf_counter()
     cpu_dbs = {}
     for name, db, q, wcoj in main_path["queries"]:
         if id(db) not in cpu_dbs:
-            cpu_dbs[id(db)] = SparqlDatabase.from_arrays(
-                db.dictionary.id_to_str, *db.store.columns(), device="cpu"
-            )
+            cpu_dbs[id(db)] = cpu_twin(db)
         os.environ["KOLIBRIE_WCOJ"] = wcoj
         try:
             cpu = execute_query_volcano(q, cpu_dbs[id(db)])
@@ -625,6 +842,109 @@ def compare_with_cpu(main_path: dict) -> None:
         if cpu != main_path["rows"][name]:
             raise AssertionError(f"{name}: card rows differ from the CPU run")
     log(f"main path: rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
+    return cpu_dbs
+
+
+# ------------------------------------------------------- SELECT surface
+
+
+def surface_databases(dev, queries) -> dict:
+    """Phase 4b's databases: phase 4's LUBM and employee databases, and a
+    copy of the LUBM columns with one advisor annotation per graduate
+    student (phase 4's database keeps its triples)."""
+    from kolibrie_tpu_torch import SparqlDatabase
+
+    by_name = {name: db for name, db, _q, _w in queries}
+    lubm = by_name["q2"]
+    t0 = time.perf_counter()
+    quoted = SparqlDatabase.from_arrays(lubm.dictionary.id_to_str, *lubm.store.columns(), device=dev)
+    n = annotate_advisors(quoted)
+    log(f"quoted database: {n} annotations, {len(quoted)} triples, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n != LUBM_GRAD_STUDENTS or len(lubm) != LUBM_TRIPLES:
+        raise AssertionError(f"{n} annotations, LUBM at {len(lubm)} triples")
+    return {"lubm": lubm, "quoted": quoted, "employee": by_name["employee"]}
+
+
+def run_select_surface(dev, dbs: dict) -> dict:
+    """Phase 4b: each SELECT-surface query cold and then warm through
+    ``execute_query_volcano`` on the card, the route and the warm run's
+    launches recorded.  Launch counters are zeroed just before the queries
+    and read just after."""
+    import torch
+
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    report, rows = {}, {}
+    K.reset_launches()
+    for name, (which, q) in SURFACE_QUERIES.items():
+        ms, routes = [], []
+        for _rep in range(2):  # cold (capacity convergence), then warm
+            before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+            sync()
+            t = time.perf_counter()
+            with RouteSpy() as spy:
+                rows[name] = execute_query_volcano(SURFACE_PREFIXES + q, dbs[which])
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            routes.append(spy.route())
+        after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        warm = {k: after[k] - before[k] for k in before}
+        report[name] = {
+            "cold_ms": ms[0], "warm_ms": ms[1], "rows": len(rows[name]), "routes": routes,
+            "warm_launches": warm,
+        }
+        log(f"{name}: {len(rows[name])} rows, cold {ms[0]:.1f} ms, warm {ms[1]:.1f} ms, "
+            f"route {routes}, warm-run launches {warm}")
+    launches = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    log(f"select surface launches: {launches}")
+    return {"queries": report, "rows": rows, "launches": launches}
+
+
+def check_select_surface(surface: dict, expected: dict) -> None:
+    """Counts, the route of both runs and the warm run's launches of every
+    phase-4b query."""
+    for name, want in expected.items():
+        rep, rows = surface["queries"][name], surface["rows"][name]
+        if rep["rows"] != want["rows"]:
+            raise AssertionError(f"{name}: {rep['rows']} rows, expected {want['rows']}")
+        if "y_bound" in want and sum(1 for r in rows if r[2]) != want["y_bound"]:
+            raise AssertionError(f"{name}: ?y bound in {sum(1 for r in rows if r[2])} rows")
+        if "each" in want and {int(r[1]) for r in rows} != {want["each"]}:
+            raise AssertionError(f"{name}: group sizes {sorted({r[1] for r in rows})}")
+        if "sum" in want and sum(int(r[1]) for r in rows) != want["sum"]:
+            raise AssertionError(f"{name}: group sizes sum to {sum(int(r[1]) for r in rows)}")
+        if set(rep["routes"]) != {SURFACE_ROUTES[name]}:
+            raise AssertionError(f"{name}: routes {rep['routes']}, expected {SURFACE_ROUTES[name]}")
+        for k, n in SURFACE_LAUNCHES[name].items():
+            if rep["warm_launches"][k] < n:
+                raise AssertionError(f"{name}: {k} launched {rep['warm_launches'][k]} times "
+                                     f"in the warm run, expected at least {n}")
+
+
+def compare_surface_with_cpu(surface: dict, dbs: dict, cpu_dbs: dict) -> None:
+    """The phase-4b queries through the port on the CPU: rows equal the
+    card's (emp_agg's SUM/AVG too: the salaries are integer-valued, so
+    every summation order is exact), the same route, and a plan whose
+    launches are the ``SURFACE_LAUNCHES`` table."""
+    from kolibrie_tpu_torch import execute_query_volcano
+
+    t0 = time.perf_counter()
+    twins = {which: cpu_dbs.get(id(db)) or cpu_twin(db) for which, db in dbs.items()}
+    for name, (which, q) in SURFACE_QUERIES.items():
+        with RouteSpy() as spy:
+            cpu = execute_query_volcano(SURFACE_PREFIXES + q, twins[which])
+        if cpu != surface["rows"][name]:
+            raise AssertionError(f"{name}: card rows differ from the CPU run")
+        if spy.route() != SURFACE_ROUTES[name]:
+            raise AssertionError(f"{name}: the CPU run took route {spy.route()}")
+        if spy.launches() != SURFACE_LAUNCHES[name]:
+            raise AssertionError(f"{name}: the CPU lowering launches {spy.launches()}, "
+                                 f"the table says {SURFACE_LAUNCHES[name]}")
+    log(f"select surface: rows, routes and plans equal the CPU run "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 # --------------------------------------------------------------- reasoner
@@ -905,18 +1225,20 @@ def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, lib
     return entry
 
 
-def kernels_at_main_path_shapes(main_path: dict, closure: dict, entries: dict):
+def kernels_at_main_path_shapes(main_path: dict, surface: dict, closure: dict, entries: dict):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
-    each path's own count: phase 4 for the SELECT kernels, the closure's
-    warm run (phase 6) for the fused filter and the closure's merge path,
-    phase 6c for the ops entries."""
+    each path's own count: phases 4 and 4b (the SELECT path) for the SELECT
+    kernels, the closure's warm run (phase 6) for the fused filter and the
+    closure's merge path, phase 6c for the ops entries."""
     import torch
 
     from kolibrie_tpu_torch.ops import kernels as K
 
     cap4 = main_path["captured"]
-    l4 = main_path["report"]["launches"]
+    l4 = {
+        k: n + surface["launches"][k] for k, n in main_path["report"]["launches"].items()
+    }
     pk = "kolibrie_tpu/ops/pallas_kernels.py:"
     csrc = "kolibrie_tpu_torch/csrc/"
     log("kernels at the paths' largest shapes, tolerance 0 (bit-exact):")
@@ -1002,7 +1324,16 @@ def main() -> int:
     queries = build_queries(dev)
     main_path = run_main_path(dev, queries)
     check_main_path(main_path["report"])
-    compare_with_cpu(main_path)
+    cpu_dbs = compare_with_cpu(main_path)
+
+    # ---- 4b. the rest of the SELECT surface
+    dbs = surface_databases(dev, queries)
+    surface = run_select_surface(dev, dbs)
+    check_select_surface(
+        surface, surface_expected(UNIVERSITIES, EXPECTED_ROWS["q2"], EMPLOYEES)
+    )
+    compare_surface_with_cpu(surface, dbs, cpu_dbs)
+    del cpu_dbs, dbs
 
     # ---- 6. the reasoner at full width, 6b. a small closure, 6c. ops entries
     lubm = next(db for name, db, _q, _w in queries if name == "q2")
@@ -1011,7 +1342,7 @@ def main() -> int:
     entries = run_ops_entries(dev, lubm, main_path["captured"]["merge_join_keys"][1])
 
     # ---- 5. kernels at the paths' shapes
-    kernels = kernels_at_main_path_shapes(main_path, closure, entries)
+    kernels = kernels_at_main_path_shapes(main_path, surface, closure, entries)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

@@ -124,6 +124,39 @@ def _pack_shared_keys(
     return joint[:ln], joint[ln:]
 
 
+def left_outer_join_tables(left: BindingTable, right: BindingTable) -> BindingTable:
+    """OPTIONAL semantics: keep unmatched left rows, right-only columns get
+    the UNBOUND (0) sentinel."""
+    shared = sorted(set(left.keys()) & set(right.keys()))
+    ln, rn = table_len(left), table_len(right)
+    right_only = [k for k in right if k not in left]
+    if ln == 0:
+        out = {k: v.copy() for k, v in left.items()}
+        for k in right_only:
+            out[k] = np.empty(0, dtype=np.uint32)
+        return out
+    if rn == 0 or not shared:
+        if rn == 0:
+            out = {k: v.copy() for k, v in left.items()}
+            for k in right_only:
+                out[k] = np.full(ln, UNBOUND, dtype=np.uint32)
+            return out
+        return equi_join_tables(left, right)  # no shared vars: cross join
+    lkey, rkey = _pack_shared_keys(left, right, shared, ln)
+    li, ri = join_indices(lkey, rkey)
+    matched = np.zeros(ln, dtype=bool)
+    matched[li] = True
+    unmatched = np.nonzero(~matched)[0]
+    out: BindingTable = {}
+    for k, col in left.items():
+        out[k] = np.concatenate([col[li], col[unmatched]])
+    for k in right_only:
+        out[k] = np.concatenate(
+            [right[k][ri], np.full(len(unmatched), UNBOUND, dtype=right[k].dtype)]
+        )
+    return out
+
+
 def anti_join_tables(left: BindingTable, right: BindingTable) -> BindingTable:
     """MINUS / NAF semantics: left rows with NO matching right row on the
     shared variables.  No shared variables ⇒ left unchanged."""

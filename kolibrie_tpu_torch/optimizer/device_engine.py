@@ -1,19 +1,29 @@
 """Device execution of physical plans on PyTorch tensors.
 
-Port of ``kolibrie_tpu/optimizer/device_engine.py`` for SPARQL SELECT over
-basic graph patterns and FILTERs.  A physical plan from
-:mod:`kolibrie_tpu_torch.optimizer.planner` is lowered to a tree of frozen
-spec nodes and evaluated by :func:`_plan_body` over the store's
-device-resident sorted orders (:meth:`ColumnarTripleStore.device_segment`):
+Port of ``kolibrie_tpu/optimizer/device_engine.py`` for SPARQL SELECT.  A
+physical plan from :mod:`kolibrie_tpu_torch.optimizer.planner` is lowered
+to a tree of frozen spec nodes and evaluated by :func:`_plan_body` over the
+store's device-resident sorted orders
+(:meth:`ColumnarTripleStore.device_segment`):
 
 - scans are windows over the frozen base order (tombstones masked) merged
-  by rank with a window over the small delta order;
+  by rank with a window over the small delta order; a quoted pattern with
+  inner variables scans its position as a synthetic qid column and expands
+  it against the device copy of the quoted table (a searchsorted gather);
+- VALUES rows are uploaded as columns;
 - joins are the merge-path kernel — :func:`merge_join_indices` when the
   right side's scan order presents the single key column sorted,
   :func:`ranked_merge_join_indices` (dense-rank prepass) otherwise;
 - FILTERs are per-ID mask gathers, ID compares and numeric compares;
 - cyclic BGPs run the worst-case-optimal join node, one variable per
-  level, with the ``lex_probe_select``/``lex_probe_validate`` kernels.
+  level, with the ``lex_probe_select``/``lex_probe_validate`` kernels;
+- UNION / OPTIONAL / MINUS / NOT clauses compose over the main tree in the
+  executor's post-pass order: union concatenation joined in, left-outer
+  joins (the merge-path kernel for the matches), anti-joins.
+
+After the plan, :func:`try_device_execute_aggregated` segment-reduces the
+table by its GROUP BY keys and :func:`try_device_execute_ordered` takes
+the ORDER BY top-k, so the host reads one row per group or ``k`` rows.
 
 The reference compiles the tree into one XLA program; here it runs eagerly,
 one PyTorch op (or kernel) at a time.  What stays the same is the
@@ -21,16 +31,17 @@ capacity protocol: every join and WCOJ level runs at a capacity, reports
 its exact match count, and :meth:`LoweredPlan.converge` re-runs with
 doubled capacities until every count fits — so counts, capacities and the
 per-operator stats keys (``scan{i}``, ``join{i}``, ``filter{i}``,
-``wcoj{i}:cand/:dedup/:live``) agree with the reference one for one.
+``wcoj{i}:cand/:dedup/:live``, ``union{i}``, ``optional{j}``, ``anti{i}``,
+``values{i}``, ``quoted{i}``) agree with the reference one for one.
 
-Shapes the slice does not lower (quoted-triple patterns, VALUES, UNION,
-OPTIONAL, MINUS, cartesian joins, non-constant string patterns, UDFs)
-raise :class:`Unsupported`.
+Shapes the device engine does not lower (cartesian joins, non-constant
+string patterns, UDFs, doubly-nested quoted patterns) raise
+:class:`Unsupported`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -69,6 +80,12 @@ __all__ = [
     "LoweredPlan",
     "lower_plan",
     "try_device_execute",
+    "try_device_execute_aggregated",
+    "try_device_execute_ordered",
+    "aggregate_table",
+    "host_quoted_table",
+    "device_quoted",
+    "device_string_ranks",
     "template_scan_cap",
     "string_filter_mask",
     "numeric_filter_mask",
@@ -108,6 +125,28 @@ class ScanSpec:
 
 
 @dataclass(frozen=True)
+class QuotedExpandSpec:
+    """Expand a column of quoted-triple IDs against the device-resident
+    quoted table (qid-sorted): bind inner variables, enforce inner
+    constants and repeats / collisions with already-bound variables.  Each
+    qid names exactly one quoted row, so the expansion is a searchsorted
+    gather, not a join."""
+
+    child: object
+    qvar: str  # synthetic column of qids produced by the scan
+    out_vars: tuple  # ((var, inner_pos 0..2), ...) fresh inner bindings
+    const_checks: tuple  # ((inner_pos, param_idx), ...)
+    eq_checks: tuple  # ((inner_pos, bound_var), ...) incl. repeats
+
+
+@dataclass(frozen=True)
+class ValuesSpec:
+    values_idx: int
+    vars: tuple
+    n: int
+
+
+@dataclass(frozen=True)
 class JoinSpec:
     left: object
     right: object
@@ -115,6 +154,39 @@ class JoinSpec:
     join_idx: int  # into the capacity table / counts output
     cap: int
     rsorted: bool = False  # right key column pre-sorted by its scan order
+
+
+@dataclass(frozen=True)
+class UnionSpec:
+    """UNION group: concatenation of branch tables over the union of their
+    variables, a branch's missing columns filled with UNBOUND (0).
+    Capacity = sum of the branch capacities."""
+
+    children: tuple
+    vars: tuple
+
+
+@dataclass(frozen=True)
+class LeftOuterSpec:
+    """OPTIONAL: matches of left ⋈ right plus the unmatched left rows with
+    UNBOUND right-only columns.  Carries a join capacity for the matches;
+    output capacity = join cap + left capacity."""
+
+    left: object
+    right: object
+    key_vars: tuple
+    join_idx: int
+    cap: int
+
+
+@dataclass(frozen=True)
+class AntiJoinSpec:
+    """MINUS / NOT: keep the ``left`` rows with NO ``right`` match on the
+    shared variables.  Output columns and capacity are the left child's."""
+
+    left: object
+    right: object
+    key_vars: tuple
 
 
 @dataclass(frozen=True)
@@ -258,17 +330,49 @@ def _drop_scatter(cap: int, dst_b, vb, dst_d, vd, device):
     return out[:cap]
 
 
-def _plan_body(spec: PlanSpec, order_arrays, scalars, masks, numf, uparams, fparams):
+def _join_keys(lcols, rcols, key_vars, lvalid, rvalid):
+    """Comparable key carriers of both sides of a join on ``key_vars``,
+    invalid rows padded (distinct pads on each side never match)."""
+    lc = [lcols[v] for v in key_vars]
+    rc = [rcols[v] for v in key_vars]
+    if len(key_vars) > 2:
+        # 3+ shared variables: union dense-rank composition
+        return pack_key_multi(lc, rc, lvalid, rvalid)
+    return _pack_key(lc, lvalid, _LPAD), _pack_key(rc, rvalid, _RPAD)
+
+
+def _unmatched(lkey, rkey):
+    """Left rows whose key has no equal among the right keys."""
+    rs = torch.sort(rkey).values
+    pos = torch.searchsorted(rs, lkey).clamp_(0, rs.shape[0] - 1)
+    return rs[pos] != lkey
+
+
+def _map_children(node, fn):
+    """``node`` with ``fn`` applied to each of its child spec nodes."""
+    if isinstance(node, (JoinSpec, LeftOuterSpec, AntiJoinSpec)):
+        return replace(node, left=fn(node.left), right=fn(node.right))
+    if isinstance(node, (FilterSpec, QuotedExpandSpec)):
+        return replace(node, child=fn(node.child))
+    if isinstance(node, UnionSpec):
+        return replace(node, children=tuple(fn(c) for c in node.children))
+    return node
+
+
+def _plan_body(
+    spec: PlanSpec, order_arrays, scalars, masks, values, numf, quoted, uparams, fparams
+):
     """Evaluate the spec tree.  Returns ``(out_cols, valid, counts,
     stats)``: device tensors of length = the root's capacity, the exact
     per-join / per-WCOJ-level match counts (0-dim tensors, indexed by
     ``join_idx`` order of evaluation) and the per-operator row counts."""
     counts: List[torch.Tensor] = []
     # EXPLAIN ANALYZE operator stats: key -> device scalar.  Indexed nodes
-    # use their plan index (scan3, join0, wcoj2:cand/:dedup/:live); filters
-    # use a PRE-ORDER occurrence counter assigned at node entry.
+    # use their plan index (scan3, join0, optional1, values0,
+    # wcoj2:cand/:dedup/:live); index-less nodes (filter, anti, union,
+    # quoted) use a PRE-ORDER occurrence counter assigned at node entry.
     stats: Dict[str, torch.Tensor] = {}
-    seq = {"filter": 0}
+    seq = {"filter": 0, "anti": 0, "union": 0, "quoted": 0}
 
     def gather_num(ids):
         return numf[ids.clamp(max=numf.shape[0] - 1)]
@@ -379,14 +483,7 @@ def _plan_body(spec: PlanSpec, order_arrays, scalars, masks, numf, uparams, fpar
             # outputs are padded to whole tiles; matches are a prefix
             li, ri, valid = li[: node.cap], ri[: node.cap], valid[: node.cap]
         else:
-            lc = [lcols[v] for v in node.key_vars]
-            rc = [rcols[v] for v in node.key_vars]
-            if len(node.key_vars) > 2:
-                # 3+ shared variables: union dense-rank composition
-                lkey, rkey = pack_key_multi(lc, rc, lvalid, rvalid)
-            else:
-                lkey = _pack_key(lc, lvalid, _LPAD)
-                rkey = _pack_key(rc, rvalid, _RPAD)
+            lkey, rkey = _join_keys(lcols, rcols, node.key_vars, lvalid, rvalid)
             li, ri, valid, total = ranked_merge_join_indices(lkey, rkey, node.cap)
         counts.append(total)
         stats[f"join{node.join_idx}"] = valid.sum()
@@ -395,6 +492,82 @@ def _plan_body(spec: PlanSpec, order_arrays, scalars, masks, numf, uparams, fpar
             if v not in out:
                 out[v] = torch.where(valid, c[ri], 0)
         return out, valid, total
+
+    def eval_quoted(node: QuotedExpandSpec):
+        skey = f"quoted{seq['quoted']}"
+        seq["quoted"] += 1
+        cols, valid, _ = eval_node(node.child)
+        cols = dict(cols)
+        qid_sorted, qs, qp, qo = quoted
+        qcol = cols.pop(node.qvar)
+        posc = torch.searchsorted(qid_sorted, qcol).clamp_(0, qid_sorted.shape[0] - 1)
+        valid = valid & (qid_sorted[posc] == qcol) & ((qcol & QUOTED_BIT) != 0)
+        inner = (qs[posc], qp[posc], qo[posc])
+        for ipos, pidx in node.const_checks:
+            valid = valid & (inner[ipos] == uparams[pidx])
+        for var, ipos in node.out_vars:
+            cols[var] = inner[ipos]
+        for ipos, var in node.eq_checks:
+            valid = valid & (inner[ipos] == cols[var])
+        n = valid.sum()
+        stats[skey] = n
+        return cols, valid, n
+
+    def eval_values(node: ValuesSpec):
+        cols = {v: values[node.values_idx][i] for i, v in enumerate(node.vars)}
+        valid = torch.ones(node.n, dtype=torch.bool, device=scalars_device)
+        n = torch.tensor(node.n, dtype=torch.int64, device=scalars_device)
+        stats[f"values{node.values_idx}"] = n
+        return cols, valid, n
+
+    def eval_anti(node: AntiJoinSpec):
+        skey = f"anti{seq['anti']}"
+        seq["anti"] += 1
+        lcols, lvalid, _ = eval_node(node.left)
+        rcols, rvalid, _ = eval_node(node.right)
+        lkey, rkey = _join_keys(lcols, rcols, node.key_vars, lvalid, rvalid)
+        valid = lvalid & _unmatched(lkey, rkey)
+        n = valid.sum()
+        stats[skey] = n
+        return lcols, valid, n
+
+    def eval_union(node: UnionSpec):
+        skey = f"union{seq['union']}"
+        seq["union"] += 1
+        parts = [eval_node(ch) for ch in node.children]
+        cols = {}
+        for v in node.vars:
+            cols[v] = torch.cat(
+                [
+                    ccols[v]
+                    if v in ccols
+                    # branch doesn't bind v: UNBOUND (0) fill
+                    else torch.zeros(cvalid.shape[0], dtype=torch.int64, device=cvalid.device)
+                    for ccols, cvalid, _ in parts
+                ]
+            )
+        valid = torch.cat([p[1] for p in parts])
+        n = valid.sum()
+        stats[skey] = n
+        return cols, valid, n
+
+    def eval_left_outer(node: LeftOuterSpec):
+        lcols, lvalid, _ = eval_node(node.left)
+        rcols, rvalid, _ = eval_node(node.right)
+        lkey, rkey = _join_keys(lcols, rcols, node.key_vars, lvalid, rvalid)
+        li, ri, mvalid, total = ranked_merge_join_indices(lkey, rkey, node.cap)
+        counts.append(total)
+        keep = lvalid & _unmatched(lkey, rkey)  # unmatched left rows
+        out = {v: torch.cat([torch.where(mvalid, c[li], 0), c]) for v, c in lcols.items()}
+        for v, c in rcols.items():
+            if v not in out:  # right-only: UNBOUND on the kept side
+                out[v] = torch.cat(
+                    [torch.where(mvalid, c[ri], 0), c.new_zeros(lvalid.shape[0])]
+                )
+        valid = torch.cat([mvalid, keep])
+        n = valid.sum()
+        stats[f"optional{node.join_idx}"] = n
+        return out, valid, n
 
     def eval_filter(node: FilterSpec):
         skey = f"filter{seq['filter']}"
@@ -499,18 +672,25 @@ def _plan_body(spec: PlanSpec, order_arrays, scalars, masks, numf, uparams, fpar
             wvalid = new_valid
         return wcols, wvalid, wvalid.sum()
 
-    def eval_node(node):
-        if isinstance(node, ScanSpec):
-            return eval_scan(node)
-        if isinstance(node, JoinSpec):
-            return eval_join(node)
-        if isinstance(node, FilterSpec):
-            return eval_filter(node)
-        if isinstance(node, WcojSpec):
-            return eval_wcoj(node)
-        raise TypeError(f"unknown plan spec node {node!r}")
+    evaluators = {
+        ScanSpec: eval_scan,
+        QuotedExpandSpec: eval_quoted,
+        ValuesSpec: eval_values,
+        JoinSpec: eval_join,
+        FilterSpec: eval_filter,
+        AntiJoinSpec: eval_anti,
+        UnionSpec: eval_union,
+        LeftOuterSpec: eval_left_outer,
+        WcojSpec: eval_wcoj,
+    }
 
-    scalars_device = order_arrays[0][2].device
+    def eval_node(node):
+        fn = evaluators.get(type(node))
+        if fn is None:
+            raise TypeError(f"unknown plan spec node {node!r}")
+        return fn(node)
+
+    scalars_device = numf.device
     cols, valid, _ = eval_node(spec.root)
     out = tuple(cols[v] for v in spec.out_vars)
     return out, valid, tuple(counts), stats
@@ -529,7 +709,7 @@ class LoweredPlan:
     the tree, validates join capacities against the true match counts, and
     returns a host :data:`BindingTable`."""
 
-    def __init__(self, db, plan):
+    def __init__(self, db, plan, anti_plans=(), union_groups=(), optional_plans=()):
         self.db = db
         self.device = db.device
         self.scan_descs: List[tuple] = []  # (order_name, (cs, cp, co)) per scan
@@ -537,20 +717,34 @@ class LoweredPlan:
         self.mask_exprs: List[tuple] = []
         self._mask_keys: Dict[tuple, int] = {}
         self._mask_dict_len: tuple = (0, 0)
+        self.values_tables: List[tuple] = []
         self.order_names: List[str] = []
         self._order_idx: Dict[str, int] = {}
         self.join_count = 0
         self.need_numf = False
+        self.need_quoted = False
         # query constants: one slot per syntactic constant site, traversal
         # order (the reference's parameter-vector ABI)
         self.u_params: List[int] = []  # u32 term-id constants
         self.f_params: List[float] = []  # f64 numeric comparands
+        self.quoted_specs: List[str] = []  # synthetic qid column names
         # fully-constant patterns: hoisted out of the join tree as host
         # membership guards — a failed guard empties the whole result
         self.const_checks: List[tuple] = []
-        self.root, vars_ = self._lower(plan)
+        if plan is None:
+            # clause-only group (UNION/OPTIONAL with no main BGP): the
+            # first clause becomes the root
+            self.root, vars_ = None, set()
+        else:
+            self.root, vars_ = self._lower(plan)
+            if self.root is None:
+                raise Unsupported("constant-only query")
+        vars_ = self._lower_clauses(vars_, anti_plans, union_groups, optional_plans)
         if self.root is None:
             raise Unsupported("constant-only query")
+        # consumers need to know whether the union/optional/minus host
+        # post-passes are already inside this program
+        self.fused_clauses = bool(anti_plans or union_groups or optional_plans)
         self.out_vars = tuple(sorted(vars_))
         if not self.out_vars:
             raise Unsupported("no output variables")
@@ -575,16 +769,13 @@ class LoweredPlan:
             if isinstance(node, ScanSpec):
                 if node.order_idx not in used:
                     used.append(node.order_idx)
-            elif isinstance(node, JoinSpec):
-                collect(node.left)
-                collect(node.right)
-            elif isinstance(node, FilterSpec):
-                collect(node.child)
             elif isinstance(node, WcojSpec):
                 for lv in node.levels:
                     for a in lv.accessors:
                         if a.order_idx not in used:
                             used.append(a.order_idx)
+            else:
+                _map_children(node, collect)
 
         collect(self.root)
         remap = {old: new for new, old in enumerate(sorted(used))}
@@ -597,48 +788,131 @@ class LoweredPlan:
 
         def rebuild(node):
             if isinstance(node, ScanSpec):
-                return ScanSpec(
-                    remap[node.order_idx],
-                    node.scan_idx,
-                    node.out_vars,
-                    node.eq_pairs,
-                    node.cap,
-                    node.key_pos,
-                )
-            if isinstance(node, JoinSpec):
-                return JoinSpec(
-                    rebuild(node.left),
-                    rebuild(node.right),
-                    node.key_vars,
-                    node.join_idx,
-                    node.cap,
-                    node.rsorted,
-                )
-            if isinstance(node, FilterSpec):
-                return FilterSpec(rebuild(node.child), node.expr)
+                return replace(node, order_idx=remap[node.order_idx])
             if isinstance(node, WcojSpec):
                 return WcojSpec(
                     tuple(
-                        WcojLevel(
-                            lv.var,
-                            lv.join_idx,
-                            lv.cap,
-                            tuple(
-                                WcojAccessor(
-                                    remap[a.order_idx],
-                                    a.key_srcs,
-                                    a.key_pos,
-                                    a.val_pos,
-                                )
+                        replace(
+                            lv,
+                            accessors=tuple(
+                                replace(a, order_idx=remap[a.order_idx])
                                 for a in lv.accessors
                             ),
                         )
                         for lv in node.levels
                     )
                 )
-            return node
+            return _map_children(node, rebuild)
 
         self.root = rebuild(self.root)
+
+    # ---------------------------------------------------- clause lowering
+
+    def _lower_branch(self, bplan, kind: str):
+        n_checks = len(self.const_checks)
+        broot, bvars = self._lower(bplan)
+        if len(self.const_checks) != n_checks or broot is None:
+            # a branch-local constant guard gates only the BRANCH, not the
+            # query; const_ok() can't express that
+            raise Unsupported(f"constant pattern in {kind} branch")
+        return broot, bvars
+
+    @staticmethod
+    def _phys_vars(op) -> set:
+        """Variables a physical branch plan WOULD bind: a statically-empty
+        UNION branch is dropped from the tree, but the host post-pass still
+        synthesizes its variables as UNBOUND-filled columns, so the device
+        union carries them too."""
+        if isinstance(op, (P.PhysIndexScan, P.PhysTableScan)):
+            # variables() recurses into quoted (RDF-star) terms
+            return set(op.pattern.variables())
+        if isinstance(
+            op, (P.PhysHashJoin, P.PhysMergeJoin, P.PhysParallelJoin, P.PhysNestedLoopJoin)
+        ):
+            return LoweredPlan._phys_vars(op.left) | LoweredPlan._phys_vars(op.right)
+        if isinstance(op, (P.PhysStarJoin, P.WcojNode)):
+            out: set = set()
+            for s in op.scans:
+                out |= LoweredPlan._phys_vars(s)
+            return out
+        if isinstance(op, (P.PhysFilter, P.PhysProjection)):
+            return LoweredPlan._phys_vars(op.child)
+        if isinstance(op, P.PhysValues):
+            return set(op.values.variables)
+        return set()
+
+    @staticmethod
+    def _statically_empty(op) -> bool:
+        """A branch whose plan scans an UNKNOWN constant can never match
+        (the term isn't in the dictionary)."""
+        if isinstance(op, (P.PhysIndexScan, P.PhysTableScan)):
+            pat = op.pattern
+            return any(
+                t.kind == "id" and t.value is None
+                for t in (pat.subject, pat.predicate, pat.object)
+            )
+        if isinstance(
+            op, (P.PhysHashJoin, P.PhysMergeJoin, P.PhysParallelJoin, P.PhysNestedLoopJoin)
+        ):
+            return LoweredPlan._statically_empty(op.left) or LoweredPlan._statically_empty(
+                op.right
+            )
+        if isinstance(op, (P.PhysStarJoin, P.WcojNode)):
+            return any(LoweredPlan._statically_empty(s) for s in op.scans)
+        if isinstance(op, (P.PhysFilter, P.PhysProjection)):
+            return LoweredPlan._statically_empty(op.child)
+        return False
+
+    def _lower_clauses(self, vars_: set, anti_plans, union_groups, optional_plans) -> set:
+        """Compose the clause branches over the main tree in the executor's
+        post-pass order — UNION joins, then OPTIONAL left-outer joins, then
+        MINUS/NOT anti-joins — so the whole group pattern is one plan."""
+        for group in union_groups:
+            live = [b for b in group if not self._statically_empty(b)]
+            if not live:
+                # every branch scans an unknown constant: the union table is
+                # empty, and joining it empties the result — a never-true
+                # guard says so
+                self.const_checks.append((None, None, None))
+                continue
+            children, all_vars = [], set()
+            for bplan in live:
+                broot, bvars = self._lower_branch(bplan, "UNION")
+                children.append(broot)
+                all_vars |= bvars
+            # dropped (statically-empty) branches contribute no rows but DO
+            # contribute columns, UNBOUND-filled, like the host post-pass
+            for bplan in group:
+                if not any(bplan is lv for lv in live):
+                    all_vars |= self._phys_vars(bplan)
+            uspec = UnionSpec(tuple(children), tuple(sorted(all_vars)))
+            self.root, vars_ = self._make_join(self.root, vars_, uspec, all_vars)
+        for bplan in optional_plans:
+            if self._statically_empty(bplan):
+                # the host keeps every left row with UNBOUND branch columns
+                raise Unsupported("OPTIONAL branch with unknown constant")
+            broot, bvars = self._lower_branch(bplan, "OPTIONAL")
+            if self.root is None:
+                # leading OPTIONAL with no group: stands alone
+                self.root, vars_ = broot, set(bvars)
+                continue
+            shared = tuple(sorted(bvars & vars_))
+            if not shared:
+                raise Unsupported("OPTIONAL with no shared variables")
+            self.root = LeftOuterSpec(self.root, broot, shared, self.join_count, 0)
+            self.join_count += 1
+            vars_ = vars_ | bvars
+        for bplan in anti_plans:
+            if self.root is None:
+                raise Unsupported("MINUS without a group")
+            if self._statically_empty(bplan):
+                continue  # empty branch: MINUS/NOT removes nothing
+            broot, bvars = self._lower_branch(bplan, "MINUS/NOT")
+            shared = tuple(sorted(bvars & vars_))
+            if not shared:
+                continue  # disjoint domains: MINUS removes nothing
+            self.root = AntiJoinSpec(self.root, broot, shared)
+        return vars_
 
     # ------------------------------------------------------------- lowering
 
@@ -693,7 +967,7 @@ class LoweredPlan:
         if isinstance(op, P.WcojNode):
             return self._lower_wcoj(op)
         if isinstance(op, P.PhysValues):
-            raise Unsupported("VALUES")
+            return self._lower_values(op.values)
         raise Unsupported(f"operator {type(op).__name__}")
 
     _DEFAULT_ORDER = {
@@ -733,7 +1007,8 @@ class LoweredPlan:
     def _lower_scan(self, pattern: PatternTriple):
         terms = [pattern.subject, pattern.predicate, pattern.object]
         consts: List[Optional[int]] = []
-        for t in terms:
+        quoted_at: List[tuple] = []  # (outer_pos, synthetic var, inner terms)
+        for pos, t in enumerate(terms):
             if t.kind == "id":
                 # a constant not in the dictionary can never match: keep the
                 # scan and let _scan_ranges emit an empty (lo, 0) range
@@ -741,7 +1016,13 @@ class LoweredPlan:
             elif t.kind == "var":
                 consts.append(None)
             else:
-                raise Unsupported("quoted-triple pattern")
+                # quoted term with inner variables (ground quoted terms were
+                # folded to their qid by resolve_pattern): scan the position
+                # as a synthetic qid variable, then expand it against the
+                # quoted table
+                qvar = f"__qt{len(self.quoted_specs)}{len(quoted_at)}"
+                quoted_at.append((pos, qvar, t.value))
+                consts.append(None)
         bound = frozenset(i for i, c in enumerate(consts) if c is not None)
         order_name = self._DEFAULT_ORDER[bound]
         order_idx = self._order(order_name)
@@ -751,14 +1032,20 @@ class LoweredPlan:
         eq_pairs: List[tuple] = []
         seen: Dict[str, int] = {}
         for pos, t in enumerate(terms):
-            if t.kind != "var":
-                continue
-            if t.value in seen:
-                eq_pairs.append((seen[t.value], pos))
+            if t.kind == "var":
+                name = t.value
+            elif t.kind == "quoted":
+                name = next(q for p, q, _ in quoted_at if p == pos)
             else:
-                seen[t.value] = pos
-                out_vars.append((t.value, pos))
-        node = ScanSpec(
+                continue
+            if name in seen:
+                eq_pairs.append((seen[name], pos))
+            else:
+                seen[name] = pos
+                out_vars.append((name, pos))
+        if not out_vars:
+            raise Unsupported("pattern binds no variables")
+        node: object = ScanSpec(
             order_idx,
             scan_idx,
             tuple(out_vars),
@@ -766,7 +1053,57 @@ class LoweredPlan:
             0,
             self._merge_key_pos(order_name, len(bound)),
         )
-        return node, set(seen)
+        bound_vars = {v for v in seen if not v.startswith("__qt")}
+        for _pos, qvar, inner in quoted_at:
+            node, bound_vars = self._wrap_quoted(node, qvar, inner, bound_vars)
+        return node, bound_vars
+
+    def _wrap_quoted(self, node, qvar: str, inner, bound_vars: set):
+        """Wrap ``node`` with one :class:`QuotedExpandSpec` for the quoted
+        term ``inner`` scanned into synthetic column ``qvar``."""
+        q_out: List[tuple] = []
+        q_const: List[tuple] = []
+        q_eq: List[tuple] = []
+        newly: set = set()
+        for ipos, it in enumerate(inner):
+            if it.kind == "id":
+                # unknown inner constant: the never-an-ID sentinel, so the
+                # check can never pass
+                q_const.append((ipos, self._uparam(SENT if it.value is None else int(it.value))))
+            elif it.kind == "var":
+                name = it.value
+                if name in bound_vars or name in newly:
+                    q_eq.append((ipos, name))  # collision or repeat
+                else:
+                    q_out.append((name, ipos))
+                    newly.add(name)
+            else:
+                raise Unsupported("doubly-nested quoted pattern")
+        self.quoted_specs.append(qvar)
+        self.need_quoted = True
+        spec = QuotedExpandSpec(node, qvar, tuple(q_out), tuple(q_const), tuple(q_eq))
+        return spec, bound_vars | newly
+
+    def _lower_values(self, values):
+        if not values.variables or not values.rows:
+            raise Unsupported("empty VALUES")
+        n = len(values.rows)
+        cols = []
+        for j, _var in enumerate(values.variables):
+            col = np.empty(n, dtype=np.int64)
+            for i, row in enumerate(values.rows):
+                term = row[j] if j < len(row) else None
+                # UNDEF is UNBOUND; a new term is interned, as the
+                # reference does
+                col[i] = (
+                    UNBOUND
+                    if term is None
+                    else self.db.dictionary.encode(self.db.expand_term(term))
+                )
+            cols.append(col)
+        idx = len(self.values_tables)
+        self.values_tables.append(tuple(cols))
+        return ValuesSpec(idx, tuple(values.variables), n), set(values.variables)
 
     def _lower_wcoj(self, op):
         """Lower a :class:`WcojNode`: one level per elimination variable; at
@@ -1033,32 +1370,14 @@ class LoweredPlan:
 
     def _with_caps(self, node, scan_caps: Dict[int, int], join_caps: List[int]):
         if isinstance(node, ScanSpec):
-            return ScanSpec(
-                node.order_idx,
-                node.scan_idx,
-                node.out_vars,
-                node.eq_pairs,
-                scan_caps[node.scan_idx],
-                node.key_pos,
-            )
-        if isinstance(node, JoinSpec):
-            return JoinSpec(
-                self._with_caps(node.left, scan_caps, join_caps),
-                self._with_caps(node.right, scan_caps, join_caps),
-                node.key_vars,
-                node.join_idx,
-                join_caps[node.join_idx],
-                node.rsorted,
-            )
-        if isinstance(node, FilterSpec):
-            return FilterSpec(self._with_caps(node.child, scan_caps, join_caps), node.expr)
+            return replace(node, cap=scan_caps[node.scan_idx])
         if isinstance(node, WcojSpec):
             return WcojSpec(
-                tuple(
-                    WcojLevel(lv.var, lv.join_idx, join_caps[lv.join_idx], lv.accessors)
-                    for lv in node.levels
-                )
+                tuple(replace(lv, cap=join_caps[lv.join_idx]) for lv in node.levels)
             )
+        node = _map_children(node, lambda c: self._with_caps(c, scan_caps, join_caps))
+        if isinstance(node, (JoinSpec, LeftOuterSpec)):
+            node = replace(node, cap=join_caps[node.join_idx])
         return node
 
     def _node_cap(self, node, scan_caps, join_caps) -> int:
@@ -1066,8 +1385,16 @@ class LoweredPlan:
             return scan_caps[node.scan_idx]
         if isinstance(node, JoinSpec):
             return join_caps[node.join_idx]
-        if isinstance(node, FilterSpec):
+        if isinstance(node, (FilterSpec, QuotedExpandSpec)):
             return self._node_cap(node.child, scan_caps, join_caps)
+        if isinstance(node, AntiJoinSpec):
+            return self._node_cap(node.left, scan_caps, join_caps)
+        if isinstance(node, LeftOuterSpec):
+            return join_caps[node.join_idx] + self._node_cap(node.left, scan_caps, join_caps)
+        if isinstance(node, UnionSpec):
+            return sum(self._node_cap(ch, scan_caps, join_caps) for ch in node.children)
+        if isinstance(node, ValuesSpec):
+            return node.n
         if isinstance(node, WcojSpec):
             return join_caps[node.levels[-1].join_idx]
         raise TypeError(node)
@@ -1085,7 +1412,19 @@ class LoweredPlan:
                 cap = _round_cap(2 * max(ln, rn))
                 caps[node.join_idx] = cap
                 return cap
-            if isinstance(node, FilterSpec):
+            if isinstance(node, AntiJoinSpec):
+                ln = walk(node.left)
+                walk(node.right)  # fills the branch's own join caps
+                return ln
+            if isinstance(node, LeftOuterSpec):
+                ln = walk(node.left)
+                rn = walk(node.right)
+                cap = _round_cap(2 * max(ln, rn))
+                caps[node.join_idx] = cap
+                return cap + ln
+            if isinstance(node, UnionSpec):
+                return sum(walk(ch) for ch in node.children)
+            if isinstance(node, (FilterSpec, QuotedExpandSpec)):
                 return walk(node.child)  # fill caps of joins under wrappers
             if isinstance(node, WcojSpec):
                 # optimistic start: each level no larger than its tightest
@@ -1129,21 +1468,24 @@ class LoweredPlan:
             torch.from_numpy(_pad_pow2(m, False)).to(self.device)
             for m in self.mask_arrays
         )
+        values = tuple(
+            tuple(torch.from_numpy(c).to(self.device) for c in cols)
+            for cols in self.values_tables
+        )
         if self.need_numf:
             numf = device_numf(self.db)
         else:
             numf = torch.zeros(1, dtype=torch.float64, device=self.device)
-        return spec, (order_arrays, self._scan_ranges_np, masks, numf)
+        quoted = device_quoted(self.db) if self.need_quoted else None
+        return spec, (order_arrays, self._scan_ranges_np, masks, values, numf, quoted)
 
     # ------------------------------------------------------------ execution
 
     def run(self):
         """One evaluation at the current capacities.  Returns (out_cols,
         valid, counts, stats) — all device-resident."""
-        spec, (order_arrays, scalars, masks, numf) = self.build()
-        return _plan_body(
-            spec, order_arrays, scalars, masks, numf, self.u_params, self.f_params
-        )
+        spec, operands = self.build()
+        return _plan_body(spec, *operands, self.u_params, self.f_params)
 
     def _store_caps(self) -> None:
         """Publish join capacities to the per-db template cache (monotonic
@@ -1301,11 +1643,398 @@ def device_numf(db) -> torch.Tensor:
     return arr
 
 
-def lower_plan(db, plan) -> LoweredPlan:
-    return LoweredPlan(db, plan)
+def host_quoted_table(db):
+    """Per-database qid-sorted quoted table as numpy ``(qid, s, p, o)``,
+    cached until the quoted store grows.  One sentinel row (all-ones qid,
+    never a real ID) keeps shapes non-empty and unmatched when the store
+    has no quoted triples."""
+    cache = db.__dict__.get("_host_qt_cache")
+    n = len(db.quoted)
+    if cache is not None and cache[0] == n:
+        return cache[1]
+    qid = np.full(n + 1, SENT, dtype=np.int64)
+    qs = np.zeros(n + 1, dtype=np.int64)
+    qp = np.zeros(n + 1, dtype=np.int64)
+    qo = np.zeros(n + 1, dtype=np.int64)
+    for i, (q, (s, p, o)) in enumerate(db.quoted.items()):
+        qid[i], qs[i], qp[i], qo[i] = q, s, p, o
+    order = np.argsort(qid, kind="stable")
+    arrs = tuple(a[order] for a in (qid, qs, qp, qo))
+    db.__dict__["_host_qt_cache"] = (n, arrs)
+    return arrs
 
 
-def try_device_execute(db, plan) -> BindingTable:
-    """Lower and run ``plan`` on the database's device.  Raises
-    :class:`Unsupported` for shapes this slice does not lower."""
-    return lower_plan(db, plan).execute()
+def device_quoted(db):
+    """Device copy of :func:`host_quoted_table`, uploaded once per quoted
+    store size; padded to a power-of-two row count with sentinel rows (the
+    all-ones qid stays sorted last and never matches)."""
+    cache = db.__dict__.get("_device_qt_cache")
+    n = len(db.quoted)
+    if cache is not None and cache[0] == n:
+        return cache[1]
+    qid, qs, qp, qo = host_quoted_table(db)
+    arrs = tuple(
+        torch.from_numpy(_pad_pow2(a, fill)).to(db.device)
+        for a, fill in ((qid, SENT), (qs, 0), (qp, 0), (qo, 0))
+    )
+    db.__dict__["_device_qt_cache"] = (n, arrs)
+    return arrs
+
+
+def lower_plan(db, plan, anti_plans=(), union_groups=(), optional_plans=()) -> LoweredPlan:
+    return LoweredPlan(db, plan, anti_plans, union_groups, optional_plans)
+
+
+def try_device_execute(db, plan, anti_plans=(), union_groups=(), optional_plans=()) -> BindingTable:
+    """Lower and run ``plan`` on the database's device, with the MINUS/NOT
+    branch plans (``anti_plans``: anti-joins), UNION groups (tuples of
+    branch plans: concatenation joined in) and OPTIONAL branch plans
+    (left-outer joins) composed over it in the host post-pass order.
+    Raises :class:`Unsupported` for shapes the engine does not lower."""
+    return lower_plan(db, plan, anti_plans, union_groups, optional_plans).execute()
+
+
+# ---------------------------------------------------------------------------
+# GROUP BY / aggregation on the device
+# ---------------------------------------------------------------------------
+
+
+def _drop_reduce(cap: int, dst, src, init: float, reduce: Optional[str] = None):
+    """``full(cap, init).at[dst].add/min/max(src, mode="drop")`` in f64:
+    destinations ``>= cap`` go to a sink slot that is cut off."""
+    out = torch.full((cap + 1,), init, dtype=torch.float64, device=src.device)
+    dst = dst.clamp(max=cap)
+    if reduce is None:
+        out.index_add_(0, dst, src)
+    else:
+        out.scatter_reduce_(0, dst, src, reduce=reduce, include_self=True)
+    return out[:cap]
+
+
+def _drop_set(cap: int, dst, src):
+    """``zeros(cap).at[dst].set(src, mode="drop")`` (unique destinations
+    below ``cap``; the rest go to the cut-off sink)."""
+    out = torch.zeros(cap + 1, dtype=src.dtype, device=src.device)
+    out[dst.clamp(max=cap)] = src
+    return out[:cap]
+
+
+def _stable_lexsort(keys: List[torch.Tensor]) -> torch.Tensor:
+    """Permutation sorting rows by ``keys`` (first key primary), ties in
+    row order: ``lax.sort(num_keys=len(keys), is_stable=True)``, built as
+    stable sorts from the last key to the first."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
+def _segment_aggregate(cols, valid, numf, gpos, funcs, apos, distincts, cap: int):
+    """Segment-reduce the final plan table on the device: stable sort by the
+    group key columns, first-occurrence segment ids, scatter-reduce per
+    aggregate.  ``gpos``: positions of the group columns in ``cols``;
+    ``funcs``: COUNT/SUM/AVG/MIN/MAX/SAMPLE; ``apos``: per-aggregate value
+    column (-1 for COUNT(*)); ``distincts``: per-aggregate DISTINCT flag
+    (honoured for COUNT only, as on the host).  Returns (group id columns,
+    f64-or-id aggregate columns, n_groups) of length ``cap``."""
+    n = valid.shape[0]
+    dev = valid.device
+    if gpos:
+        keys = [torch.where(valid, cols[g], SENT) for g in gpos]
+    else:
+        # aggregate without GROUP BY: one group holding every valid row
+        keys = [torch.where(valid, 0, SENT)]
+    order = _stable_lexsort(keys)
+    ks = [k[order] for k in keys]
+    rowok = ks[0] != SENT  # invalid rows carry the sentinel in EVERY key
+    isnew = torch.zeros(n, dtype=torch.bool, device=dev)
+    isnew[0] = True
+    for k in ks:
+        isnew[1:] |= k[1:] != k[:-1]
+    isnew &= rowok
+    if not gpos:
+        # SPARQL: an empty input still yields ONE group (COUNT() = 0)
+        isnew[0] = True
+    seg = torch.cumsum(isnew, 0) - 1
+    n_groups = isnew.sum()
+    segc = torch.where(rowok, seg, cap)
+    gdest = torch.where(isnew, seg, cap)
+    group_cols = [_drop_set(cap, gdest, k) for k in ks[: len(gpos)]]
+    ones = torch.ones(n, dtype=torch.float64, device=dev)
+
+    def distinct_first(vcol):
+        """Mask (in ORIGINAL row order) of the first occurrence of each
+        (group key, value) pair."""
+        vkey = torch.where(valid, vcol, SENT)
+        perm = _stable_lexsort(keys + [vkey])
+        firstp = torch.zeros(n, dtype=torch.bool, device=dev)
+        firstp[0] = True
+        for k in keys + [vkey]:
+            kp = k[perm]
+            firstp[1:] |= kp[1:] != kp[:-1]
+        out = torch.zeros(n, dtype=torch.bool, device=dev)
+        out[perm] = firstp
+        return out
+
+    agg_out = []
+    for func, ap, dst_flag in zip(funcs, apos, distincts):
+        if func == "COUNT" and ap < 0:
+            agg_out.append(_drop_reduce(cap, segc, ones, 0.0))
+            continue
+        col = cols[ap][order]
+        if func == "SAMPLE":
+            # stable sort: the segment's first row is the group's FIRST row
+            # in plan-output order; the forced group of a no-GROUP-BY
+            # aggregate can be empty, hence the row-count guard
+            cnt0 = _drop_reduce(cap, segc, ones, 0.0)
+            ids = _drop_set(cap, gdest, col)
+            agg_out.append(torch.where(cnt0 == 0, 0, ids))
+            continue
+        if func == "COUNT":
+            bound = (segc < cap) & (col != UNBOUND)
+            if dst_flag:
+                bound &= distinct_first(cols[ap])[order]
+            agg_out.append(_drop_reduce(cap, torch.where(bound, segc, cap), ones, 0.0))
+            continue
+        vals = numf[col.clamp(max=numf.shape[0] - 1)]
+        ok = (segc < cap) & ~torch.isnan(vals)
+        dst = torch.where(ok, segc, cap)
+        # one numeric-value count per segment: emptiness (-> NaN -> UNBOUND)
+        # is decided by the count, never by the reduction's identity, so a
+        # genuine +-inf literal survives
+        cnt = _drop_reduce(cap, dst, ones, 0.0)
+        if func in ("SUM", "AVG"):
+            sums = _drop_reduce(cap, dst, torch.where(ok, vals, 0.0), 0.0)
+            res = sums / torch.where(cnt == 0, 1.0, cnt) if func == "AVG" else sums
+        elif func == "MIN":
+            inf = torch.full_like(vals, float("inf"))
+            res = _drop_reduce(cap, dst, torch.where(ok, vals, inf), float("inf"), "amin")
+        else:  # MAX
+            ninf = torch.full_like(vals, float("-inf"))
+            res = _drop_reduce(cap, dst, torch.where(ok, vals, ninf), float("-inf"), "amax")
+        agg_out.append(torch.where(cnt == 0, float("nan"), res))
+    return tuple(group_cols), tuple(agg_out), n_groups
+
+
+_DEVICE_AGG_FUNCS = ("COUNT", "SUM", "AVG", "MIN", "MAX", "SAMPLE")
+
+
+def try_device_execute_aggregated(db, plan, q, lowered: Optional[LoweredPlan] = None):
+    """Plan execution + GROUP BY/aggregation on the device; the host reads
+    one row per group.  ``None`` when the aggregate shape is not
+    expressible (GROUP_CONCAT, DISTINCT on a non-COUNT aggregate,
+    expression items, a group key outside the plan): the caller then
+    aggregates the plan's table on the host.  ``lowered``: the caller's
+    lowering of ``plan``."""
+    agg_items = [i for i in q.select if i.kind == "agg"]
+    if not agg_items and not q.group_by:
+        return None
+    if any(i.kind == "expr" for i in q.select):
+        return None  # host semantics drop exprs in agg queries; stay exact
+    for item in agg_items:
+        a = item.agg
+        if a.func not in _DEVICE_AGG_FUNCS:
+            return None
+        if a.distinct and a.func != "COUNT":
+            return None  # DISTINCT changes only COUNT on the host
+    if lowered is None:
+        lowered = lower_plan(db, plan)
+    if not lowered.const_ok():
+        return None  # empty result; the host path aggregates nothing
+    out_vars = lowered.out_vars
+    gpos = []
+    for g in q.group_by:
+        if g not in out_vars:
+            return None
+        gpos.append(out_vars.index(g))
+    funcs, apos = [], []
+    for item in agg_items:
+        a = item.agg
+        if a.var is None:
+            apos.append(-1)
+        elif a.var in out_vars:
+            apos.append(out_vars.index(a.var))
+        else:
+            return None
+        funcs.append(a.func)
+    out_cols, valid = lowered.converge(lowered.run())
+    return aggregate_table(db, tuple(out_cols), valid, q.group_by, agg_items, gpos, funcs, apos)
+
+
+def aggregate_table(db, cols, valid, group_by, agg_items, gpos, funcs, apos) -> BindingTable:
+    """Run :func:`_segment_aggregate` with the group-capacity retry and
+    decode the per-group results into a host table."""
+    from kolibrie_tpu_torch.query.executor import _encode_numbers
+
+    cap = 1024
+    numf_dev = device_numf(db)
+    distincts = tuple(bool(i.agg.distinct) for i in agg_items)
+    for _attempt in range(8):
+        gcols, aggs, n_groups = _segment_aggregate(
+            cols, valid, numf_dev, tuple(gpos), tuple(funcs), tuple(apos), distincts, cap
+        )
+        ng = int(n_groups)
+        if ng <= cap:
+            break
+        cap = _round_cap(2 * ng)
+    else:
+        raise RuntimeError("group capacity failed to converge")
+    table: BindingTable = {}
+    for g, col in zip(group_by, gcols):
+        table[g] = col[:ng].cpu().numpy().astype(np.uint32)
+    enc = db.dictionary.encode
+    for item, arr in zip(agg_items, aggs):
+        host = arr[:ng].cpu().numpy()
+        if item.agg.func == "SAMPLE":
+            # the aggregate IS a term id, not a numeric result
+            table[item.agg.alias] = host.astype(np.uint32)
+        else:
+            table[item.agg.alias] = _encode_numbers(enc, host)
+    return table
+
+
+# ---------------------------------------------------------------------------
+# ORDER BY + LIMIT on the device (top-k readback)
+# ---------------------------------------------------------------------------
+
+
+def device_string_ranks(db):
+    """Per-ID global string ranks (f64) for ORDER BY over non-numeric keys:
+    every dictionary ID and quoted ID ranked by its RAW decoded term (the
+    host ``_order_table`` ranks the result subset the same way; subset
+    ranks are order-isomorphic to these).  Returns ``(dict_ranks,
+    quoted_ranks)``, cached until either store grows."""
+    n_d = len(db.dictionary.id_to_str)
+    n_q = len(db.quoted)
+    cache = db.__dict__.get("_device_strrank_cache")
+    if cache is not None and cache[0] == (n_d, n_q):
+        return cache[1]
+    dec = db.decode_term
+    strs = [dec(i) or "" for i in range(n_d)] + [dec(QUOTED_BIT | i) or "" for i in range(n_q)]
+    _, inv = np.unique(np.array(strs), return_inverse=True)
+    ranks = inv.astype(np.float64)
+    arrs = (
+        torch.from_numpy(_pad_pow2(ranks[:n_d], 0.0)).to(db.device),
+        torch.from_numpy(
+            _pad_pow2(ranks[n_d:] if n_q else np.zeros(1, dtype=np.float64), 0.0)
+        ).to(db.device),
+    )
+    db.__dict__["_device_strrank_cache"] = ((n_d, n_q), arrs)
+    return arrs
+
+
+def _order_limit(cols, valid, numf, opos, descs, k: int, dranks=None, qranks=None):
+    """ORDER BY + LIMIT on the device: sort keys gathered from the per-ID
+    numeric table, or, when a key column holds ANY non-numeric valid value
+    (the host ``_order_table`` per-column rule), from the global string
+    ranks (two-level for quoted IDs); composed as stable argsorts, first
+    ``k`` rows.  Returns ``(sliced cols, sliced valid, n_valid,
+    nan_seen)``: run without ranks first, and a true ``nan_seen`` means
+    run again with them."""
+    n = valid.shape[0]
+    perm = torch.arange(n, device=valid.device)
+    nan_seen = torch.zeros((), dtype=torch.bool, device=valid.device)
+    keys = []
+    for pos, desc in zip(opos, descs):
+        col = cols[pos]
+        vals = numf[col.clamp(max=numf.shape[0] - 1)]
+        col_nan = (torch.isnan(vals) & valid).any()
+        nan_seen = nan_seen | col_nan
+        if dranks is not None:
+            isq = (col & QUOTED_BIT) != 0
+            dr = dranks[col.clamp(max=dranks.shape[0] - 1)]
+            qi = col & (~QUOTED_BIT & 0xFFFFFFFF)
+            qr = qranks[qi.clamp(max=qranks.shape[0] - 1)]
+            # one non-numeric value switches the WHOLE column to ranks
+            vals = torch.where(col_nan, torch.where(isq, qr, dr), vals)
+        keys.append(-vals if desc else vals)
+    # lexsort: secondary keys first, primary last, then validity outermost
+    # so invalid rows sink to the end
+    for key in reversed(keys):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    vkey = (~valid).to(torch.int8)
+    perm = perm[torch.sort(vkey[perm], stable=True).indices]
+    top = perm[:k]
+    return tuple(c[top] for c in cols), valid[top], valid.sum(), nan_seen
+
+
+def try_device_execute_ordered(db, q) -> Optional[List[List[str]]]:
+    """ORDER BY + LIMIT on the device: plan execution, top-k sort, O(limit)
+    readback, formatted rows.  ``None`` when the shape is not expressible
+    (the caller orders the full table on the host)."""
+    from kolibrie_tpu_torch.optimizer.engine import resolve_pattern
+    from kolibrie_tpu_torch.optimizer.planner import Streamertail, build_logical_plan
+    from kolibrie_tpu_torch.query.executor import _clause_plans, format_results
+    from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
+
+    if q.limit is None or not q.order_by or q.distinct or q.group_by:
+        return None
+    if any(i.kind != "var" for i in q.select) and not q.select_all():
+        return None
+    w = inline_subqueries(q.where)
+    if w.subqueries or w.binds or w.window_blocks or not w.patterns:
+        return None
+    # the host projects to the SELECT variables BEFORE ordering, so a sort
+    # key outside the projection is a no-op there: leave those to it
+    pattern_vars = {
+        t.value
+        for p in w.patterns
+        for t in (p.subject, p.predicate, p.object)
+        if t.kind == "var"
+    }
+    sel_vars = pattern_vars if q.select_all() else {i.var for i in q.select if i.kind == "var"}
+    for cond in q.order_by:
+        if (
+            not isinstance(cond.expr, Var)
+            or cond.expr.name not in pattern_vars
+            or cond.expr.name not in sel_vars
+        ):
+            return None
+    resolved = [resolve_pattern(db, p) for p in w.patterns]
+    try:
+        logical = build_logical_plan(resolved, list(w.filters), [], w.values)
+        planner = Streamertail(db.get_or_build_stats())
+        plan = planner.find_best_plan(logical)
+        # UNION/OPTIONAL/MINUS/NOT fuse exactly as on the unordered path
+        clauses = _clause_plans(db, planner, w)
+        if clauses is None:
+            return None
+        union_groups, optional_plans, anti_plans = clauses
+        lowered = lower_plan(db, plan, anti_plans, union_groups, optional_plans)
+    except Unsupported:
+        return None
+    if not lowered.const_ok():
+        return []  # a failed constant guard empties the result
+    out_vars = lowered.out_vars
+    if q.select_all():
+        # ``*`` covers branch-bound vars too; internal vars stay hidden
+        sel_vars = {v for v in out_vars if not v.startswith("__")}
+    opos, descs = [], []
+    for cond in q.order_by:
+        if cond.expr.name not in out_vars:
+            return None
+        opos.append(out_vars.index(cond.expr.name))
+        descs.append(bool(cond.descending))
+    k = _round_cap((q.offset or 0) + q.limit, 8)
+    numf_dev = device_numf(db)
+    out_cols, valid = lowered.converge(lowered.run())
+    # phase 1: numeric keys only, no host rank build
+    top_cols, top_valid, _n, nan_seen = _order_limit(
+        tuple(out_cols), valid, numf_dev, tuple(opos), tuple(descs), k
+    )
+    if bool(nan_seen):
+        # phase 2: a key column holds non-numeric values — the global
+        # string ranks (cached per store size), same device columns
+        dranks, qranks = device_string_ranks(db)
+        top_cols, top_valid, _n, _nan = _order_limit(
+            tuple(out_cols), valid, numf_dev, tuple(opos), tuple(descs), k, dranks, qranks
+        )
+    keep = [j for j, v in enumerate(out_vars) if v in sel_vars]
+    stacked = torch.stack([top_cols[j] for j in keep] + [top_valid.to(torch.int64)]).cpu().numpy()
+    tv = stacked[-1].astype(bool)
+    table: BindingTable = {
+        out_vars[j]: stacked[i][tv].astype(np.uint32) for i, j in enumerate(keep)
+    }
+    rows = format_results(db, table, q)
+    start = q.offset or 0
+    return rows[start : start + q.limit]

@@ -2,34 +2,61 @@
 post-passes → format.
 
 Port of the SELECT path of ``kolibrie_tpu/query/executor.py``
-(``execute_query_volcano``): the group pattern's basic graph pattern and
-its FILTERs run on the device engine
-(:mod:`kolibrie_tpu_torch.optimizer.device_engine`), then BIND, FILTERs
-over BIND outputs, projection and SELECT expressions, DISTINCT, ORDER BY,
-formatting and LIMIT/OFFSET run on the host over the read-back table,
-exactly as the reference applies them.
+(``execute_query_volcano``), with the reference's routing between the
+device program and the host post-passes:
 
-A construct this slice does not lower raises :class:`Unsupported` with its
-name: updates and declarations, aggregates and GROUP BY, subqueries,
-UNION, OPTIONAL, MINUS, NOT blocks, windows, VALUES.  Nothing falls back to
-a host engine.
+- plain sub-SELECTs fold into the group (:mod:`.subquery_inline`); the
+  group's BGP, FILTERs and VALUES run on the device engine
+  (:mod:`kolibrie_tpu_torch.optimizer.device_engine`), and its UNION /
+  OPTIONAL / MINUS / NOT clauses fuse into the same device program when
+  every branch is a plain BGP (all or nothing);
+- otherwise the clauses run as host post-passes over device tables: each
+  branch is its own :func:`eval_where`; a non-inlinable subquery joins on
+  the host too;
+- GROUP BY aggregates segment-reduce on the device
+  (``try_device_execute_aggregated``) unless their shape needs the host
+  aggregation; ORDER BY … LIMIT takes the device top-k
+  (``try_device_execute_ordered``) where it applies;
+- BIND, FILTERs over BIND outputs, projection and SELECT expressions,
+  DISTINCT, host ORDER BY, formatting and LIMIT/OFFSET run on the host over
+  the read-back table.
+
+What the reference runs on its host engine raises :class:`Unsupported`
+with the construct's name here (updates and declarations, WINDOW blocks,
+cartesian products, shapes the device engine does not lower).  Nothing
+falls back to a host engine.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from kolibrie_tpu_torch.core.dictionary import QUOTED_BIT, display_form
-from kolibrie_tpu_torch.ops.join import UNBOUND, BindingTable, table_len
+from kolibrie_tpu_torch.ops.join import (
+    UNBOUND,
+    BindingTable,
+    anti_join_tables,
+    concat_tables,
+    equi_join_tables,
+    left_outer_join_tables,
+    table_len,
+)
 from kolibrie_tpu_torch.ops.unique import unique_table
-from kolibrie_tpu_torch.optimizer.device_engine import Unsupported, try_device_execute
+from kolibrie_tpu_torch.optimizer.device_engine import (
+    Unsupported,
+    lower_plan,
+    try_device_execute,
+    try_device_execute_aggregated,
+    try_device_execute_ordered,
+)
 from kolibrie_tpu_torch.optimizer.engine import ExecutionEngine, resolve_pattern
 from kolibrie_tpu_torch.optimizer.planner import Streamertail, build_logical_plan
 from kolibrie_tpu_torch.query import ast as A
 from kolibrie_tpu_torch.query.ast import OrderCondition, SelectQuery, Var, WhereClause
 from kolibrie_tpu_torch.query.parser import parse_combined_query
+from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
 
 __all__ = ["Unsupported", "execute_query_volcano", "eval_where", "format_results"]
 
@@ -62,25 +89,48 @@ def _filter_vars(expr) -> List[str]:
 
 
 def _check_where(where: WhereClause) -> None:
-    for name, present in (
-        ("subquery", where.subqueries),
-        ("UNION", where.unions),
-        ("OPTIONAL", where.optionals),
-        ("MINUS", where.minus),
-        ("NOT block", where.not_blocks),
-        ("WINDOW block", where.window_blocks),
-        ("VALUES", where.values is not None),
-    ):
-        if present:
-            raise Unsupported(name)
-    if not where.patterns:
-        raise Unsupported("group pattern without triple patterns")
+    if where.window_blocks:
+        raise Unsupported("WINDOW block")
 
 
-def eval_where(db, where: WhereClause) -> BindingTable:
-    """Evaluate a group graph pattern to a binding table (IDs): the BGP and
-    the FILTERs that need no BIND output on the device, then BINDs and the
-    remaining FILTERs on the host."""
+def _clause_plans(db, planner, where: WhereClause):
+    """Branch plans of the WHERE's UNION groups, OPTIONALs and MINUS / NOT
+    blocks as ``(union_groups, optional_plans, anti_plans)``, or None when
+    a branch needs the host post-pass (fusion is all or nothing)."""
+    union_groups: List[tuple] = []
+    optional_plans: List[object] = []
+    anti_plans: List[object] = []
+    for groups in where.unions:
+        g = [_branch_plan(db, planner, bw) for bw in groups]
+        if any(bp is None for bp in g):
+            return None
+        union_groups.append(tuple(g))
+    for ow in where.optionals:
+        bp = _branch_plan(db, planner, ow)
+        if bp is None:
+            return None
+        optional_plans.append(bp)
+    for bw in list(where.minus) + [WhereClause(patterns=nb.patterns) for nb in where.not_blocks]:
+        bp = _branch_plan(db, planner, bw)
+        if bp is None:
+            return None
+        anti_plans.append(bp)
+    return tuple(union_groups), tuple(optional_plans), tuple(anti_plans)
+
+
+def _has_clauses(where: WhereClause) -> bool:
+    return bool(where.minus or where.not_blocks or where.unions or where.optionals)
+
+
+def eval_where(db, where: WhereClause, prebuilt_plan=None, prebuilt_lowered=None) -> BindingTable:
+    """Evaluate a group graph pattern to a binding table (IDs).
+
+    ``prebuilt_plan`` / ``prebuilt_lowered``: the physical plan and the
+    device lowering the aggregate route already made for this WHERE (the
+    lowering ``False`` when it failed), so neither runs twice."""
+    # fold plain sub-SELECTs into the group before planning: one device
+    # plan instead of materialize-then-join on the host
+    where = inline_subqueries(where)
     _check_where(where)
     resolved = [resolve_pattern(db, p) for p in where.patterns]
     # filters referencing BIND outputs can only run after the binds
@@ -88,9 +138,54 @@ def eval_where(db, where: WhereClause) -> BindingTable:
     plan_filters = [f for f in where.filters if not (set(_filter_vars(f)) & bind_vars)]
     post_bind_filters = [f for f in where.filters if set(_filter_vars(f)) & bind_vars]
     planner = Streamertail(db.get_or_build_stats())
-    plan = planner.find_best_plan(build_logical_plan(resolved, plan_filters, [], None))
-    table = try_device_execute(db, plan)
+    plan = prebuilt_plan
+    if plan is None:
+        plan = planner.find_best_plan(
+            build_logical_plan(resolved, plan_filters, [], where.values)
+        )
+    fused_clauses = False
+    table = None
+    if prebuilt_lowered is not None and prebuilt_lowered is not False:
+        table = prebuilt_lowered.execute()
+        fused_clauses = prebuilt_lowered.fused_clauses
+    elif prebuilt_lowered is None and not where.subqueries and _has_clauses(where):
+        # UNION / OPTIONAL / MINUS / NOT fuse into the device program in the
+        # order the host post-passes apply them.  All or nothing: a single
+        # non-BGP branch keeps every clause on the post-pass path.
+        clauses = _clause_plans(db, planner, where)
+        if clauses is not None:
+            union_groups, optional_plans, anti_plans = clauses
+            main_plan = plan
+            if not where.patterns and where.values is None:
+                # clause-only group: the first union/optional stands alone
+                # (plan None).  Filters attached to an empty plan never see
+                # clause columns on the host path, so only a filter-free
+                # group keeps exact parity.
+                if where.filters or not (union_groups or optional_plans):
+                    main_plan = False
+                else:
+                    main_plan = None
+            if main_plan is not False:
+                try:
+                    lowered = lower_plan(db, main_plan, anti_plans, union_groups, optional_plans)
+                except Unsupported:
+                    lowered = None  # the plain plan + host post-passes
+                if lowered is not None:
+                    table = lowered.execute()
+                    fused_clauses = True
+    if table is None:
+        if not where.patterns and where.values is None:
+            # the reference evaluates the empty group on its host engine
+            raise Unsupported("group of clauses only, not fused")
+        # raises Unsupported where the reference runs its host engine
+        table = try_device_execute(db, plan)
+    # subqueries that did not inline join in on the host
+    for sq in where.subqueries:
+        table = equi_join_tables(table, eval_select_to_table(db, sq.query))
+    if _has_clauses(where) and not fused_clauses:
+        table = _clause_post_passes(db, table, where)
     engine = ExecutionEngine(db)
+    # BINDs after joins (may reference any bound variable)
     for b in where.binds:
         table = dict(table)
         table[b.var] = engine.eval_arith_to_ids(b.expr, table)
@@ -100,12 +195,84 @@ def eval_where(db, where: WhereClause) -> BindingTable:
     return table
 
 
+def _clause_post_passes(db, table: BindingTable, where: WhereClause) -> BindingTable:
+    """UNION, OPTIONAL, MINUS and NOT over ``table`` on the host, each
+    branch table from its own :func:`eval_where` (on the device)."""
+    for groups in where.unions:
+        parts = [eval_where(db, g) for g in groups]
+        keys = set()
+        for t in parts:
+            keys |= set(t)
+        norm = []
+        for t in parts:
+            nt = dict(t)
+            n = table_len(t)
+            for k in keys:
+                if k not in nt:
+                    nt[k] = np.full(n, UNBOUND, dtype=np.uint32)
+            norm.append(nt)
+        union_table = concat_tables(norm) if norm else {}
+        if table_len(table) or where.patterns:
+            table = equi_join_tables(table, union_table)
+        else:
+            table = union_table
+    for opt in where.optionals:
+        opt_table = eval_where(db, opt)
+        if (
+            not table
+            and not where.patterns
+            and where.values is None
+            and not where.subqueries
+            and not where.unions
+        ):
+            # OPTIONAL over the unit table keeps the optional's solutions
+            table = opt_table
+        else:
+            table = left_outer_join_tables(table, opt_table)
+    for m in where.minus:
+        table = anti_join_tables(table, eval_where(db, m))
+    for nb in where.not_blocks:
+        table = anti_join_tables(table, eval_where(db, WhereClause(patterns=nb.patterns)))
+    return table
+
+
+def _branch_plan(db, planner, bw: WhereClause):
+    """Physical plan of a clause branch (UNION / OPTIONAL / MINUS / NOT
+    block) that may fuse into the device program; ``None`` when the branch
+    needs the host post-pass (non-BGP content)."""
+    bw = inline_subqueries(bw)
+    if (
+        not bw.patterns
+        or bw.binds
+        or bw.values is not None
+        or bw.subqueries
+        or bw.not_blocks
+        or bw.window_blocks
+        or bw.optionals
+        or bw.unions
+        or bw.minus
+    ):
+        return None
+    bres = [resolve_pattern(db, p) for p in bw.patterns]
+    return planner.find_best_plan(build_logical_plan(bres, list(bw.filters), [], None))
+
+
+def _is_aggregate(q: SelectQuery) -> bool:
+    return bool(q.group_by) or any(i.kind == "agg" for i in q.select)
+
+
 def eval_select_to_table(db, q: SelectQuery) -> BindingTable:
-    """Run a SELECT down to a binding table projected to its variables."""
-    if q.group_by or any(i.kind == "agg" for i in q.select):
-        raise Unsupported("aggregate")
-    table = eval_where(db, q.where)
-    if not q.select_all():
+    """Run a SELECT down to a binding table projected to its variables
+    (aggregates resolved)."""
+    prebuilt_plan = prebuilt_lowered = None
+    if _is_aggregate(q):
+        table, prebuilt_plan, prebuilt_lowered = _try_device_aggregate(db, q)
+        if table is not None:
+            return unique_table(table) if q.distinct else table
+    table = eval_where(db, q.where, prebuilt_plan, prebuilt_lowered)
+    if _is_aggregate(q):
+        table = _group_and_aggregate_table(db, table, q)
+    elif not q.select_all():
         keep = [i.var for i in q.select if i.kind == "var" and i.var in table]
         engine = ExecutionEngine(db)
         out: BindingTable = {v: table[v] for v in keep}
@@ -113,9 +280,151 @@ def eval_select_to_table(db, q: SelectQuery) -> BindingTable:
             if item.kind == "expr":
                 out[item.alias] = engine.eval_arith_to_ids(item.expr, table)
         table = out
+    elif any(k.startswith("__") for k in table):
+        # internal columns (inlined subqueries' scoped variables) are not
+        # part of ``*``: drop them BEFORE DISTINCT
+        table = {k: v for k, v in table.items() if not k.startswith("__")}
     if q.distinct:
         table = unique_table(table)
     return table
+
+
+def _try_device_aggregate(
+    db, q: SelectQuery
+) -> Tuple[Optional[BindingTable], Optional[object], Optional[object]]:
+    """Aggregate query fused on the device (plan + GROUP BY segment-reduce;
+    the host reads one row per group).  Returns ``(table, plan,
+    lowered)``: table None → :func:`eval_where` + host aggregation, which
+    reuses the returned plan and lowering (``False`` = lowering failed)."""
+    w = inline_subqueries(q.where)  # the fold eval_where applies
+    if w.subqueries or w.binds or w.window_blocks or not w.patterns:
+        return None, None, None
+    resolved = [resolve_pattern(db, p) for p in w.patterns]
+    planner = Streamertail(db.get_or_build_stats())
+    plan = planner.find_best_plan(build_logical_plan(resolved, list(w.filters), [], w.values))
+    # UNION/OPTIONAL/MINUS/NOT fuse under the aggregation as on the plain
+    # path; an ineligible branch means host post-passes AND host
+    # aggregation over the post-passed table
+    clauses = _clause_plans(db, planner, w)
+    if clauses is None:
+        # eval_where runs the plain device BGP + host post-passes
+        try:
+            return None, plan, lower_plan(db, plan)
+        except Unsupported:
+            return None, plan, False
+    union_groups, optional_plans, anti_plans = clauses
+    try:
+        lowered = lower_plan(db, plan, anti_plans, union_groups, optional_plans)
+    except Unsupported:
+        if anti_plans or union_groups or optional_plans:
+            try:  # the plain BGP may still lower even if a branch cannot
+                return None, plan, lower_plan(db, plan)
+            except Unsupported:
+                pass
+        return None, plan, False
+    return try_device_execute_aggregated(db, plan, q, lowered=lowered), plan, lowered
+
+
+def _group_and_aggregate_table(db, table: BindingTable, q: SelectQuery) -> BindingTable:
+    """GROUP BY + aggregates on the host via np.unique segment ids."""
+    n = table_len(table)
+    group_by = [g for g in q.group_by if g in table]
+    if group_by:
+        stacked = np.stack([table[g] for g in group_by], axis=1)
+        uniq, inverse = np.unique(stacked, axis=0, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        n_groups = len(uniq)
+    else:
+        # aggregate without GROUP BY: exactly one group (SPARQL semantics)
+        uniq = None
+        inverse = np.zeros(n, dtype=np.int64)
+        n_groups = 1
+    out: BindingTable = {}
+    for j, g in enumerate(group_by):
+        out[g] = uniq[:, j].astype(np.uint32)
+    numeric = db.numeric_values()
+    enc = db.dictionary.encode
+    for item in q.select:
+        if item.kind != "agg":
+            continue
+        agg = item.agg
+        vals_col: Optional[np.ndarray] = None
+        if agg.var is not None and agg.var in table:
+            vals_col = table[agg.var]
+        if agg.func == "COUNT":
+            if vals_col is None:
+                counts = (
+                    np.bincount(inverse, minlength=n_groups)
+                    if n
+                    else np.zeros(n_groups, dtype=np.int64)
+                )
+            elif agg.distinct:
+                counts = np.zeros(n_groups, dtype=np.int64)
+                for g in range(n_groups):
+                    seg = vals_col[inverse == g]
+                    counts[g] = len(np.unique(seg[seg != UNBOUND]))
+            else:
+                counts = (
+                    np.bincount(
+                        inverse,
+                        weights=(vals_col != UNBOUND).astype(float),
+                        minlength=n_groups,
+                    ).astype(np.int64)
+                    if n
+                    else np.zeros(n_groups, dtype=np.int64)
+                )
+            out[agg.alias] = _encode_numbers(enc, counts.astype(np.float64))
+            continue
+        if vals_col is None:
+            out[agg.alias] = np.full(n_groups, UNBOUND, dtype=np.uint32)
+            continue
+        nums = numeric[np.minimum(vals_col, len(numeric) - 1)] if n else np.empty(0)
+        if agg.func in ("SUM", "AVG", "MIN", "MAX"):
+            res = np.zeros(n_groups, dtype=np.float64)
+            for g in range(n_groups):
+                seg = nums[inverse == g]
+                seg = seg[~np.isnan(seg)]
+                if len(seg) == 0:
+                    res[g] = np.nan
+                elif agg.func == "SUM":
+                    res[g] = seg.sum()
+                elif agg.func == "AVG":
+                    res[g] = seg.mean()
+                elif agg.func == "MIN":
+                    res[g] = seg.min()
+                else:
+                    res[g] = seg.max()
+            out[agg.alias] = _encode_numbers(enc, res)
+        elif agg.func == "SAMPLE":
+            res_ids = np.zeros(n_groups, dtype=np.uint32)
+            for g in range(n_groups):
+                seg = vals_col[inverse == g]
+                res_ids[g] = seg[0] if len(seg) else UNBOUND
+            out[agg.alias] = res_ids
+        elif agg.func == "GROUP_CONCAT":
+            dec = db.decode_term
+            res_ids = np.zeros(n_groups, dtype=np.uint32)
+            for g in range(n_groups):
+                seg = vals_col[inverse == g]
+                parts = [display_form(dec(int(i))) for i in seg]
+                res_ids[g] = enc('"' + ", ".join(x or "" for x in parts) + '"')
+            out[agg.alias] = res_ids
+        else:
+            raise ValueError(f"unsupported aggregate {agg.func}")
+    return out
+
+
+def _encode_numbers(enc, values: np.ndarray) -> np.ndarray:
+    out = np.empty(len(values), dtype=np.uint32)
+    for i, v in enumerate(values):
+        if np.isnan(v):
+            out[i] = UNBOUND
+        else:
+            # non-finite stays float-formatted ("inf"/"-inf"); int(inf) raises
+            isint = np.isfinite(v) and float(v) == int(v)
+            sv = str(int(v)) if isint else f"{v:g}"
+            out[i] = enc(f'"{sv}"')
+    return out
 
 
 def _order_table(db, table: BindingTable, order_by: List[OrderCondition]) -> BindingTable:
@@ -148,13 +457,16 @@ def _order_table(db, table: BindingTable, order_by: List[OrderCondition]) -> Bin
 
 
 def table_header(table: BindingTable, q: SelectQuery) -> List[str]:
-    """Output column names for a SELECT over a binding table."""
+    """Output column names for a SELECT over a binding table (internal
+    ``__``-prefixed columns excluded)."""
     if q.select_all():
         return sorted(k for k in table.keys() if not k.startswith("__"))
     header = []
     for item in q.select:
         if item.kind == "var":
             header.append(item.var)
+        elif item.kind == "agg":
+            header.append(item.agg.alias)
         else:
             header.append(item.alias)
     return header
@@ -264,6 +576,11 @@ def format_results(db, table: BindingTable, q: SelectQuery, sort_rows: bool = Fa
 
 
 def execute_select(db, q: SelectQuery) -> Rows:
+    if q.order_by and q.limit is not None:
+        # ORDER BY + LIMIT on the device: top-k sort, O(limit) readback
+        rows = try_device_execute_ordered(db, q)
+        if rows is not None:
+            return rows
     table = eval_select_to_table(db, q)
     table = _order_table(db, table, q.order_by)
     rows = format_results(db, table, q, sort_rows=not q.order_by)

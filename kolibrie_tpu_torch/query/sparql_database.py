@@ -151,13 +151,20 @@ class SparqlDatabase:
         return self._ingest(rdf_parsers.parse_ntriples(data))
 
     @classmethod
-    def from_arrays(cls, terms, s, p, o, device: DeviceLike = None) -> "SparqlDatabase":
+    def from_arrays(
+        cls, terms, s, p, o, quoted=None, device: DeviceLike = None
+    ) -> "SparqlDatabase":
         """A database holding another database's state: ``terms`` is the
         dictionary's term list in ID order (index 0 the NULL slot, ``None``),
-        ``s``/``p``/``o`` are u32 columns with deletions already applied.
-        Dictionary IDs, and hence every sort order, match the source's."""
+        ``s``/``p``/``o`` are u32 columns with deletions already applied and
+        ``quoted`` an optional mapping quoted-triple ID -> ``(s, p, o)``.
+        Dictionary and quoted IDs, and hence every sort order, match the
+        source's."""
         db = cls(device)
         db.dictionary = Dictionary.from_terms(terms)
+        for qid, (qs, qp, qo) in sorted((quoted or {}).items()):
+            if db.quoted.intern(int(qs), int(qp), int(qo)) != qid:
+                raise ValueError(f"quoted-triple ID {qid:#x} is not dense")
         db.store.add_batch(
             np.asarray(s, np.uint32), np.asarray(p, np.uint32), np.asarray(o, np.uint32)
         )

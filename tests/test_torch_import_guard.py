@@ -31,6 +31,20 @@ rows = port.execute_query_volcano(
     "SELECT ?x ?y ?g WHERE { ?x <http://e/knows> ?y . ?x <http://e/age> ?g }", db
 )
 assert rows == [["http://e/a", "http://e/b", "30"]], rows
+rows = port.execute_query_volcano(
+    "SELECT ?x ?y ?g ?h WHERE { ?x <http://e/knows> ?y "
+    "{ ?x <http://e/age> ?g } UNION { ?x <http://e/knows> ?g } "
+    "OPTIONAL { ?x <http://e/age> ?h } MINUS { ?y <http://e/knows> ?z } }", db
+)
+assert rows == [["http://e/b", "http://e/c", "http://e/c", ""]], rows
+rows = port.execute_query_volcano(
+    "SELECT ?x (COUNT(?y) AS ?n) WHERE { ?x <http://e/knows> ?y } GROUP BY ?x", db
+)
+assert rows == [["http://e/a", "1"], ["http://e/b", "1"]], rows
+rows = port.execute_query_volcano(
+    "SELECT ?x ?y WHERE { ?x <http://e/knows> ?y } ORDER BY DESC(?y) LIMIT 1", db
+)
+assert rows == [["http://e/b", "http://e/c"]], rows
 r = port.Reasoner(device="cpu")
 for i in range(6):
     r.add_abox_triple(f"n{i}", "next", f"n{i + 1}")
