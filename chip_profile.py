@@ -20,9 +20,16 @@ and the operators whose kernels took the most of it.  Then the same for the reas
 (``chip_smoke.py`` phase 6): one cold run, one warm run with a timer
 around every device round (``device_fixpoint._fixpoint_round``, which ends
 in the round's one host read), then a warm run under ``torch.profiler``.
-Prints one JSON object per query and one for the closure, the card's name
-and power limit, and last one JSON object with every breakdown.  It checks
-nothing: ``chip_smoke.py`` does.
+Then phase 7's RSP stream (``chip_smoke.run_rsp``, device R2R): per firing
+the wall, the R2R's maintenance and fixpoint ms, the store's compaction ms
+(``ColumnarTripleStore.compact``), the query ms, and the rest of the R2R
+(host eviction and write-back of derived facts) and of the firing (the
+engine's per-item window remove/add); one warm firing (the fourth) runs
+under ``torch.profiler``, and its device busy ms over the median wall of
+the other warm firings is the stream's busy share.
+Prints one JSON object per query, one for the closure and one for the RSP
+stream, the card's name and power limit, and last one JSON object with
+every breakdown.  It checks nothing: ``chip_smoke.py`` does.
 """
 
 from __future__ import annotations
@@ -170,6 +177,71 @@ def profile_closure(lubm) -> dict:
     }
 
 
+def profile_rsp(dev) -> dict:
+    import statistics
+
+    from chip_smoke import (
+        RSP_EVENTS_PER_TICK,
+        RSP_PERSONS,
+        RSP_SEED,
+        RSP_TICKS,
+        rsp_stream,
+        run_rsp,
+    )
+    from kolibrie_tpu_torch.core.store import ColumnarTripleStore
+
+    profiled_firing = 3
+    spent = {}
+    compact = ColumnarTripleStore.compact
+
+    def compact_timed(self):
+        t = time.perf_counter()
+        try:
+            return compact(self)
+        finally:
+            spent["compact_ms"] = spent.get("compact_ms", 0.0) + (time.perf_counter() - t) * 1e3
+
+    prof = {}
+
+    def around(k, fn):
+        spent.clear()
+        if k == profiled_firing:
+            prof.update(device_profile(fn))
+        else:
+            fn()
+        compacts.append(spent.get("compact_ms", 0.0))
+
+    compacts = []
+    ColumnarTripleStore.compact = compact_timed
+    try:
+        stream = rsp_stream(RSP_PERSONS, RSP_EVENTS_PER_TICK, RSP_TICKS, RSP_SEED)
+        run = run_rsp(dev, "device", stream, around_firing=around)
+    finally:
+        ColumnarTripleStore.compact = compact
+    firings = []
+    for rec, compact_ms in zip(run["firings"], compacts):
+        r2r, query, wall = rec.get("r2r_ms", 0.0), rec.get("query_ms", 0.0), rec["wall_ms"]
+        inside = rec.get("maintain_ms", 0.0) + rec.get("fixpoint_ms", 0.0)
+        firings.append({
+            "content": rec["content"], "derived": rec["derived"], "rows": len(rec["rows"]),
+            "wall_ms": wall, "r2r_ms": r2r, "maintain_ms": rec.get("maintain_ms", 0.0),
+            "fixpoint_ms": rec.get("fixpoint_ms", 0.0), "rounds": rec.get("rounds"),
+            "caps": rec.get("caps"), "compact_ms": compact_ms, "query_ms": query,
+            "r2r_host_rest_ms": r2r - inside, "outside_r2r_query_ms": wall - r2r - query,
+        })
+    warm = [f["wall_ms"] for k, f in enumerate(firings) if k not in (0, profiled_firing)]
+    return {
+        "rsp": "phase7",
+        "events": len(stream),
+        "events_per_s": run["events_per_s"],
+        "peak_bytes": run["peak_bytes"],
+        "firings": firings,
+        "profiled_firing": profiled_firing,
+        **prof,
+        "busy_share": prof["device_busy_ms"] / statistics.median(warm),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -206,8 +278,10 @@ def main() -> int:
     del dbs
     closure = profile_closure(next(db for name, db, _q, _w in queries if name == "q2"))
     print(json.dumps(closure), flush=True)
+    rsp = profile_rsp(dev)
+    print(json.dumps(rsp), flush=True)
     print(card)
-    print(json.dumps({"card": card, "queries": out, "closure": closure}))
+    print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp}))
     return 0
 
 

@@ -57,11 +57,30 @@ result line):
             graduate students), ``merge_join`` (the Q9-off join's keys) and
             ``tag_combine`` (every op, at the closure's fact capacity), with
             counters zeroed just before and read just after.
+7. RSP — the single-window R2R shape of ``benches/bench_rsp_engine.py``
+            at a 120,000-triple window: ``RSPBuilder(RSP_QUERY)
+            .add_rules(RSP_RULES).set_r2r_mode("device")`` on the card over
+            360 ticks of 1,000 ``knows`` events among 40,000 persons (rule
+            ``knows o knows => reach``, about 360,000 derived a firing; the
+            query joins ``reach`` and ``knows`` on two keys).  The same
+            stream through ``set_r2r_mode("host")`` is the oracle: rows and
+            derived counts equal firing by firing, rows > 0.  The host run
+            still queries on the card, so the stream's first
+            ``RSP_CPU_TICKS`` ticks also go through the port's CPU run
+            (``device="cpu"``, host closure), whose firings the card's must
+            equal too.  At least five
+            full-width firings, the device route kept (``_device_ok``), no
+            dead letters, and every warm firing launching ``filter_mask``
+            and the merge path twice.  Per firing: maintenance, fixpoint
+            and query ms, rounds, capacities, derived, rows, wall; events/s
+            and peak device memory.  Counters zeroed just before the stream
+            and read just after.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6 and 6c), both
+            the largest inputs its path gave it (phases 4, 6, 6c and 7), both
             timed on the device, and the bound: the bytes the function needs
-            at 3.35 TB/s.  Runs last, after the phases that record the
-            shapes.
+            at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
+            predicate-only shapes.  Runs last, after the phases that record
+            the shapes.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -162,6 +181,27 @@ SURFACE_LAUNCHES = {
     "emp_agg": {"merge_path_join": 1, "merge_join_indices": 1},
 }
 SINCE_YEARS = 20  # "<year>" literals of the advisor annotations
+
+# ---- phase 7: RSP (the single-window R2R shape of benches/bench_rsp_engine.py:96-145)
+RSP_PERSONS = 40_000
+RSP_EVENTS_PER_TICK = 1_000
+RSP_TICKS = 360  # ticks 1 .. 360: firings at 60, 120, ..., 360
+RSP_WIDTH = 120  # [RANGE 120 STEP 60]: a full window holds 120 ticks of events
+RSP_SEED = 7
+RSP_FULL_FIRINGS = 5
+RSP_CPU_TICKS = 180  # the CPU oracle's prefix: firings at 60, 120, 180 (two at full width)
+RSP_STREAM = "http://city/social"
+RSP_QUERY = """PREFIX s: <http://city/>
+REGISTER RSTREAM <http://out/cyc> AS
+SELECT ?a ?c
+FROM NAMED WINDOW <http://city/w/> ON <http://city/social> [RANGE 120 STEP 60]
+WHERE { WINDOW <http://city/w/> { ?a s:reach ?c . ?c s:knows ?a } }"""
+RSP_RULES = """@prefix s: <http://city/> .
+{ ?a s:knows ?b . ?b s:knows ?c . } => { ?a s:reach ?c . } .
+"""
+# Kernel launches every warm device firing must make: the fixpoint's premise
+# scans (filter_mask) and its premise join + the query's two-key join
+RSP_LAUNCHES = {"filter_mask": 1, "merge_path_join": 2}
 
 
 def surface_expected(universities: int, q2_rows: int, employees: int) -> dict:
@@ -1042,6 +1082,19 @@ def run_closure(dev, lubm) -> dict:
     return {"runs": runs, "captured": record_closure_inputs(fresh)}
 
 
+def filter_recorder(captured: dict, fn):
+    """``fn`` (the fixpoint's ``filter_mask``) keeping in ``captured`` the
+    call with the most rows, as phase 5's arguments (no readback)."""
+
+    def wrapped(s_, p_, o_, s_c, p_c, o_c):
+        if s_.shape[0] > captured.get("filter_mask", (0, None))[0]:
+            kw = {"s_const": s_c, "p_const": p_c, "o_const": o_c, "o_op": -1, "o_cmp": 0}
+            captured["filter_mask"] = (s_.shape[0], (s_, p_, o_, kw))
+        return fn(s_, p_, o_, s_c, p_c, o_c)
+
+    return wrapped
+
+
 def record_closure_inputs(fresh) -> dict:
     """One more closure run on ``fresh()``, recording the largest fact scan
     the fused filter received and the merge-path call with the most output
@@ -1054,19 +1107,13 @@ def record_closure_inputs(fresh) -> dict:
     captured = {}
     orig = (FX.filter_mask, K.merge_path)
 
-    def filter_rec(s_, p_, o_, s_c, p_c, o_c):
-        if s_.shape[0] > captured.get("filter_mask", (0, None))[0]:
-            kw = {"s_const": s_c, "p_const": p_c, "o_const": o_c, "o_op": -1, "o_cmp": 0}
-            captured["filter_mask"] = (s_.shape[0], (s_, p_, o_, kw))
-        return orig[0](s_, p_, o_, s_c, p_c, o_c)
-
     def merge_rec(*a):
         key = (a[6], int(a[3]), a[4])
         if key > captured.get("merge_path_join", ((0, 0, 0), None))[0]:
             captured["merge_path_join"] = (key, a)
         return orig[1](*a)
 
-    FX.filter_mask, K.merge_path = filter_rec, merge_rec
+    FX.filter_mask, K.merge_path = filter_recorder(captured, orig[0]), merge_rec
     try:
         derived = fresh().infer_new_facts_semi_naive_parallel()
     finally:
@@ -1194,6 +1241,214 @@ def run_ops_entries(dev, lubm, q9_off_keys) -> dict:
     }
 
 
+# ------------------------------------------------------------------- RSP
+
+
+def rsp_stream(persons: int, per_tick: int, ticks: int, seed: int) -> list:
+    """Phase 7's stream: ``per_tick`` ``knows`` events at each tick 1 ..
+    ``ticks``, between persons drawn uniformly from ``persons`` with
+    ``numpy.random.default_rng(seed)``.  Returns ``(ts, WindowTriple)``
+    pairs."""
+    import numpy as np
+
+    from kolibrie_tpu_torch import WindowTriple
+
+    rng = np.random.default_rng(seed)
+    n = per_tick * ticks
+    i = rng.integers(0, persons, n).tolist()
+    j = rng.integers(0, persons, n).tolist()
+    knows = "<http://city/knows>"
+    return [
+        (1 + k // per_tick, WindowTriple(f"<http://city/p{a}>", knows, f"<http://city/p{b}>"))
+        for k, (a, b) in enumerate(zip(i, j))
+    ]
+
+
+def rsp_prefix(stream: list, ticks: int) -> list:
+    """The events of ``stream`` at ticks 1 .. ``ticks``."""
+    return [e for e in stream if e[0] <= ticks]
+
+
+def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
+    """Drive ``stream`` through ``RSPBuilder(RSP_QUERY).add_rules(RSP_RULES)
+    .set_r2r_mode(mode)`` on ``dev``, recording per firing: the window's
+    content size, the wall ms of the whole firing (the window processor),
+    the R2R's maintenance ms and fixpoint ms (device mode; synchronised),
+    the fixpoint's rounds and capacities, the query ms, the derived count,
+    the emitted rows and the kernel launches.  ``around_firing(k, fn)``, if
+    given, runs firing ``k`` (default: ``fn()``).  Launch counters are
+    zeroed just before the stream and read just after; the largest inputs
+    the merge-path kernel and the fused filter received are kept (as
+    references, no readback) for phase 5."""
+    import torch
+
+    from kolibrie_tpu_torch import RSPBuilder
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    firings: list = []
+    engine = (
+        RSPBuilder(RSP_QUERY, device=dev)
+        .add_rules(RSP_RULES)
+        .set_r2r_mode(mode)
+        .with_consumer(lambda row: firings[-1]["rows"].append(row))
+        .build()
+    )
+    r2r = engine.r2r
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            sync()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                sync()
+                rec = firings[-1]
+                rec[key] = rec.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+
+        return wrapped
+
+    def counted_materialize():
+        derived = materialize()
+        firings[-1]["derived"] = len(derived)
+        return derived
+
+    materialize = timed("r2r_ms", r2r.materialize)
+    r2r.materialize = counted_materialize
+    r2r.execute_query = timed("query_ms", r2r.execute_query)
+    if mode == "device":
+        r2r._apply_delta = timed("maintain_ms", r2r._apply_delta)
+        r2r._rebuild_mirror = timed("maintain_ms", r2r._rebuild_mirror)
+    window = engine.windows[0].window
+    processor = window.call_back
+
+    def firing(content):
+        k = len(firings)
+        firings.append({"content": len(content), "rows": []})
+        before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        sync()
+        t = time.perf_counter()
+        if around_firing is None:
+            processor(content)
+        else:
+            around_firing(k, lambda: processor(content))
+        sync()
+        rec = firings[-1]
+        rec["wall_ms"] = (time.perf_counter() - t) * 1e3
+        after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        rec["launches"] = {k2: after[k2] - before[k2] for k2 in before if after[k2] > before[k2]}
+
+    window.call_back = firing
+
+    captured = {}
+    orig = (FX.DeviceFixpoint.infer_padded, FX.filter_mask, K.merge_path)
+
+    def infer_rec(self, *a, **k):
+        out = timed("fixpoint_ms", orig[0])(self, *a, **k)
+        firings[-1]["rounds"], firings[-1]["caps"] = self.last_rounds, vars(out[4])
+        return out
+
+    def merge_rec(*a):
+        key = (a[6], a[4])  # output slots, left rows: host ints, no readback
+        if key > captured.get("merge_path_join", ((0, 0), None))[0]:
+            captured["merge_path_join"] = (key, a)
+        return orig[2](*a)
+
+    FX.DeviceFixpoint.infer_padded, K.merge_path = infer_rec, merge_rec
+    FX.filter_mask = filter_recorder(captured, orig[1])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        for ts, item in stream:
+            engine.add_to_stream(RSP_STREAM, item, ts)
+        sync()
+        wall_s = time.perf_counter() - t0
+    finally:
+        FX.DeviceFixpoint.infer_padded, FX.filter_mask, K.merge_path = orig
+        engine.stop()
+    launches = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    for k, rec in enumerate(firings):
+        rec["rows"] = sorted(rec["rows"])
+        log(f"rsp {mode} firing {k}: content {rec['content']}, derived {rec.get('derived')}, "
+            f"rows {len(rec['rows'])}, wall {rec['wall_ms']:.1f} ms (r2r {rec.get('r2r_ms', 0):.1f}: "
+            f"maintenance {rec.get('maintain_ms', 0):.1f}, fixpoint {rec.get('fixpoint_ms', 0):.1f} "
+            f"in {rec.get('rounds')} rounds, caps {rec.get('caps')}; query "
+            f"{rec.get('query_ms', 0):.1f}), launches {rec['launches']}")
+    log(f"rsp {mode}: {len(stream)} events in {wall_s:.2f} s = {len(stream) / wall_s:.1f} "
+        f"events/s, {len(firings)} firings, peak device memory {peak} B, launches {launches}")
+    return {
+        "firings": firings,
+        "wall_s": wall_s,
+        "events_per_s": len(stream) / wall_s,
+        "peak_bytes": peak,
+        "launches": launches,
+        "captured": captured,
+        "device_ok": getattr(r2r, "_device_ok", None),
+        "dead_letters": engine.dead_letters,
+    }
+
+
+def check_rsp(card: dict, host: dict, full_window: int, launches: dict, cpu: dict) -> None:
+    """Phase 7's gates: the device R2R took the device route throughout and
+    dead-lettered nothing; at least ``RSP_FULL_FIRINGS`` firings held a full
+    window (``full_window`` distinct triples or more, less 1% for repeated
+    draws); every firing's rows and derived count equal the host R2R's, the
+    first firings equal the CPU run's over a prefix of the stream (``cpu``:
+    at least two firings, one at full width), and the rows total more than
+    0; every warm firing launched ``launches``."""
+    if card["device_ok"] is not True:
+        raise AssertionError("rsp: the device R2R left the device route")
+    for run in (card, host, cpu):
+        if run["dead_letters"]:
+            raise AssertionError(f"rsp: dead-lettered firings {run['dead_letters']}")
+    full = sum(1 for f in card["firings"] if f["content"] >= 0.99 * full_window)
+    if full < RSP_FULL_FIRINGS:
+        raise AssertionError(f"rsp: {full} full-width firings, expected {RSP_FULL_FIRINGS}")
+    if len(card["firings"]) != len(host["firings"]):
+        raise AssertionError("rsp: the card and host runs fired a different number of times")
+    if not 2 <= len(cpu["firings"]) <= len(card["firings"]):
+        raise AssertionError(f"rsp: the CPU oracle fired {len(cpu['firings'])} times")
+    if max(f["content"] for f in cpu["firings"]) < 0.99 * full_window:
+        raise AssertionError("rsp: the CPU oracle held no full-width firing")
+    for oracle, run in (("host", host), ("cpu", cpu)):
+        for k, (c, h) in enumerate(zip(card["firings"], run["firings"])):
+            if c["rows"] != h["rows"] or c["derived"] != h["derived"]:
+                raise AssertionError(f"rsp firing {k}: card {len(c['rows'])} rows / {c['derived']} "
+                                     f"derived, {oracle} {len(h['rows'])} / {h['derived']}")
+    total = sum(len(f["rows"]) for f in card["firings"])
+    if total <= 0:
+        raise AssertionError("rsp: no rows emitted")
+    for k, f in enumerate(card["firings"][1:], start=1):
+        for name, n in launches.items():
+            if f["launches"].get(name, 0) < n:
+                raise AssertionError(f"rsp firing {k} launched {name} "
+                                     f"{f['launches'].get(name, 0)} times, expected >= {n}")
+    log(f"rsp: {len(card['firings'])} firings ({full} full width), {total} rows, "
+        f"rows and derived counts equal the host R2R's firing by firing and the "
+        f"CPU run's in the first {len(cpu['firings'])}")
+
+
+def run_rsp_phase(dev) -> dict:
+    """Phase 7: the RSP engine at a 120,000-triple window, device R2R on the
+    card against the host R2R (also on the card's engine) as its oracle,
+    and against the port's CPU run over the stream's first
+    ``RSP_CPU_TICKS`` ticks."""
+    import torch
+
+    stream = rsp_stream(RSP_PERSONS, RSP_EVENTS_PER_TICK, RSP_TICKS, RSP_SEED)
+    card = run_rsp(dev, "device", stream)
+    host = run_rsp(dev, "host", stream)
+    cpu = run_rsp(torch.device("cpu"), "host", rsp_prefix(stream, RSP_CPU_TICKS))
+    launches = RSP_LAUNCHES if dev.type == "cuda" else {}
+    check_rsp(card, host, RSP_WIDTH * RSP_EVENTS_PER_TICK, launches, cpu)
+    return card
+
+
 # ------------------------------------------------------- kernel timing
 
 
@@ -1225,12 +1480,26 @@ def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, lib
     return entry
 
 
-def kernels_at_main_path_shapes(main_path: dict, surface: dict, closure: dict, entries: dict):
+def filter_library(args):
+    """The one PyTorch call that computes ``filter_mask`` on ``args`` where
+    there is one: ``torch.eq`` for a predicate-only pattern; else None."""
+    import torch
+
+    s, p, o, kw = args
+    if kw["s_const"] < 0 and kw["o_const"] < 0 and kw["o_op"] < 0 and kw["p_const"] >= 0:
+        return lambda: torch.eq(p, kw["p_const"])
+    return None
+
+
+def kernels_at_main_path_shapes(
+    main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict
+):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
     each path's own count: phases 4 and 4b (the SELECT path) for the SELECT
     kernels, the closure's warm run (phase 6) for the fused filter and the
-    closure's merge path, phase 6c for the ops entries."""
+    closure's merge path, phase 6c for the ops entries, phase 7's device run
+    for the RSP path's merge path and filter."""
     import torch
 
     from kolibrie_tpu_torch.ops import kernels as K
@@ -1272,10 +1541,18 @@ def kernels_at_main_path_shapes(main_path: dict, surface: dict, closure: dict, e
     def filt_plain(s, p, o, kw):
         return K.filter_mask_plain(s, p, o, **kw)
 
+    fargs = closure["captured"]["filter_mask"][1]
     line.append(timed_row("filter_mask", csrc + "filter_mask.cu", pk + "887",
-                          warm["filter_mask"],
-                          closure["captured"]["filter_mask"][1], filt, filt_plain,
-                          filter_bytes, check_filter))
+                          warm["filter_mask"], fargs, filt, filt_plain,
+                          filter_bytes, check_filter, filter_library(fargs)))
+    rargs = rsp["captured"]["filter_mask"][1]
+    line.append(timed_row("filter_mask[rsp]", csrc + "filter_mask.cu", pk + "887",
+                          rsp["launches"]["filter_mask"], rargs, filt, filt_plain,
+                          filter_bytes, check_filter, filter_library(rargs)))
+    line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
+                          rsp["launches"]["merge_path_join"],
+                          rsp["captured"]["merge_path_join"][1], K.merge_path,
+                          K.merge_path_plain, merge_path_bytes, check_merge_path))
     a, b = entries["tags"]
     library = {"min": torch.minimum, "max": torch.maximum, "mul": torch.mul}
     for op in TAG_OPS:
@@ -1341,8 +1618,11 @@ def main() -> int:
     run_small_closure(dev)
     entries = run_ops_entries(dev, lubm, main_path["captured"]["merge_join_keys"][1])
 
+    # ---- 7. the RSP engine at a 120,000-triple window
+    rsp = run_rsp_phase(dev)
+
     # ---- 5. kernels at the paths' shapes
-    kernels = kernels_at_main_path_shapes(main_path, surface, closure, entries)
+    kernels = kernels_at_main_path_shapes(main_path, surface, closure, entries, rsp)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

@@ -2,9 +2,10 @@
 
 SPARQL SELECT over basic graph patterns and FILTERs runs on the device
 engine (scans over the two-tier sorted store, merge-path joins, FILTER
-masks, the worst-case-optimal join for cyclic patterns), and the Datalog
+masks, the worst-case-optimal join for cyclic patterns), the Datalog
 reasoner's semi-naive fixpoint runs as device rounds (fused triple-pattern
-scans, merge-path premise joins, sort-unique dedup), with hand-written CUDA
+scans, merge-path premise joins, sort-unique dedup), and the RSP engine
+closes and queries each window firing on the device, with hand-written CUDA
 kernels for the NVIDIA H100.  Every entry point runs on the CUDA card
 unless the caller passes ``device="cpu"``.
 
@@ -18,10 +19,23 @@ unless the caller passes ``device="cpu"``.
     r.add_abox_triple("a", "next", "b")
     r.add_rule(r.rule_from_strings([...], [...]))
     r.infer_new_facts_semi_naive_parallel()
+
+    from kolibrie_tpu_torch import RSPBuilder, WindowTriple
+    engine = RSPBuilder("REGISTER RSTREAM ...", device="cpu").add_rules(...).build()
+    engine.add_to_stream("http://stream", WindowTriple(s, p, o), ts)
 """
 
 from kolibrie_tpu_torch.query.executor import Unsupported, execute_query_volcano
 from kolibrie_tpu_torch.query.sparql_database import SparqlDatabase
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner
+from kolibrie_tpu_torch.rsp import RSPBuilder, RSPEngine, WindowTriple
 
-__all__ = ["Reasoner", "SparqlDatabase", "Unsupported", "execute_query_volcano"]
+__all__ = [
+    "RSPBuilder",
+    "RSPEngine",
+    "Reasoner",
+    "SparqlDatabase",
+    "Unsupported",
+    "WindowTriple",
+    "execute_query_volcano",
+]

@@ -761,6 +761,12 @@ class ColumnarTripleStore:
         for i in range(len(s)):
             yield Triple(int(s[i]), int(p[i]), int(o[i]))
 
+    def triples_set(self) -> set:
+        """Membership set of (s, p, o) int tuples (the reference memoizes it
+        per version; here it is built per call)."""
+        s, p, o = self.columns()
+        return set(zip(s.tolist(), p.tolist(), o.tolist()))
+
     # ---------------------------------------------------------------- match
 
     def match(

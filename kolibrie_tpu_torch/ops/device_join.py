@@ -28,6 +28,7 @@ __all__ = [
     "join_indices",
     "join_indices_presorted",
     "semi_join_mask",
+    "set_difference_rows",
 ]
 
 Join = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -138,6 +139,38 @@ def _row_membership(
 
 
 _U32PAD = 0xFFFFFFFF
+_OURS_PAD = 0xFFFFFFFE  # invalid rows of ``ours``: never equal to _U32PAD
+
+
+def set_difference_rows(
+    cols: Sequence[torch.Tensor],
+    valid: torch.Tensor,
+    other_cols: Sequence[torch.Tensor],
+    other_valid: torch.Tensor,
+    cap: int,
+):
+    """Rows of ``cols`` not present in ``other_cols`` (u32 ID columns as
+    int64), compacted to the front of ``cap``-row outputs.  Port of
+    ``kolibrie_tpu/ops/device_join.py::set_difference_rows``.
+
+    Invalid rows on the two sides carry different sentinels, so padding
+    never matches padding.  Returns ``(cols, out_valid, n_out)``: survivors
+    in their input order then zeros, and the exact survivor count as a 0-dim
+    int64 tensor; survivors beyond ``cap`` are dropped, as the reference's
+    ``mode="drop"`` scatter drops them (here: into a spare slot ``cap``
+    that is cut off)."""
+    dev = valid.device
+    ours = [torch.where(valid, c, _OURS_PAD) for c in cols]
+    theirs = [torch.where(other_valid, c, _U32PAD) for c in other_cols]
+    keep = valid & ~_row_membership(ours, theirs)
+    dest = torch.where(keep, torch.cumsum(keep, 0) - 1, cap).clamp_(max=cap)
+    outs = []
+    for c in cols:
+        out = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        out.index_put_((dest,), c)
+        outs.append(out[:cap])
+    n_out = keep.sum()
+    return tuple(outs), torch.arange(cap, device=dev) < n_out, n_out
 
 
 def _sort_unique3(cols: Sequence[torch.Tensor], valid: torch.Tensor, cap: int):

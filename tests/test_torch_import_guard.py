@@ -52,6 +52,23 @@ r.add_rule(r.rule_from_strings(
     [("?x", "next", "?y"), ("?y", "next", "?z")], [("?x", "next", "?z")]))
 r.add_rule(r.rule_from_strings([("?x", "next", "?y")], [("?y", "prev", "?x")]))
 assert r.infer_new_facts_device() == 15 + 21, len(r)
+out = []
+engine = (
+    port.RSPBuilder(
+        "PREFIX ex: <http://e/> REGISTER RSTREAM <http://o> AS SELECT ?a ?c "
+        "FROM NAMED WINDOW <http://e/w> ON <http://e/s> [RANGE 4 STEP 2] "
+        "WHERE { WINDOW <http://e/w> { ?a ex:reach ?c } }",
+        device="cpu",
+    )
+    .add_rules("@prefix ex: <http://e/> . { ?a ex:knows ?b . ?b ex:knows ?c . } "
+               "=> { ?a ex:reach ?c . } .")
+    .with_consumer(out.append)
+    .build()
+)
+for ts in range(1, 6):
+    engine.add_to_stream("http://e/s", port.WindowTriple(
+        f"<http://e/p{ts}>", "<http://e/knows>", f"<http://e/p{ts + 1}>"), ts)
+assert out and engine.r2r._device_ok and not engine.dead_letters, out
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -69,6 +86,14 @@ except RuntimeError as e:
     assert "CUDA" in str(e)
 else:
     raise AssertionError("a reasoner without a device and no CUDA card must raise")
+try:
+    port.RSPBuilder("REGISTER RSTREAM <http://o> AS SELECT ?a FROM NAMED WINDOW <http://e/w> "
+                    "ON <http://e/s> [RANGE 4 STEP 2] WHERE { WINDOW <http://e/w> "
+                    "{ ?a <http://e/p> ?b } }").build()
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("an RSP engine without a device and no CUDA card must raise")
 print("guard-ok")
 """
 
@@ -103,7 +128,10 @@ def _imports(path: Path):
 
 
 def test_no_source_of_the_port_names_jax_or_the_jax_package():
-    files = sorted((REPO / "kolibrie_tpu_torch").rglob("*.py")) + [
+    pkg = REPO / "kolibrie_tpu_torch"
+    walked = {f.parent.name for f in pkg.rglob("*.py")}
+    assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops"} <= walked, walked
+    files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "chip_profile.py",
     ]
@@ -133,3 +161,33 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
         capture_output=True, text=True, timeout=120, env=env, cwd=str(tmp_path),
     )
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_unported_rsp_and_mqo_paths_raise():
+    """Shared-prefix MQO, cross-window SDS+ reasoning and the incremental
+    R2R are later slices: asking for them raises NotImplementedError (in
+    this process the JAX package is loaded too, which the port ignores)."""
+    import pytest
+
+    import kolibrie_tpu_torch as port
+    from kolibrie_tpu_torch.optimizer import mqo
+
+    db = port.SparqlDatabase(device="cpu")
+    for mode in ("auto", "force"):
+        with mqo.override_mqo_mode(mode):
+            with pytest.raises(NotImplementedError, match="item 10"):
+                mqo.mqo_mode()
+            with pytest.raises(NotImplementedError, match="item 10"):
+                with mqo.standing_scope(db, "http://e/w"):
+                    pass
+    assert mqo.mqo_mode() == "off"
+    q = ("REGISTER RSTREAM <http://o> AS SELECT ?a FROM NAMED WINDOW <http://e/w/> "
+         "ON <http://e/s> [RANGE 4 STEP 2] WHERE { WINDOW <http://e/w/> { ?a <http://e/p> ?b } }")
+    with pytest.raises(NotImplementedError, match="provenance"):
+        port.RSPBuilder(q, device="cpu").set_cross_window_rules(
+            "@prefix w: <http://e/w/> . { ?a w:p ?b . } => { ?a w:q ?b . } ."
+        ).build()
+    with pytest.raises(NotImplementedError, match="provenance"):
+        port.RSPBuilder(q, device="cpu").set_r2r_mode("incremental").build()
+    with pytest.raises(ValueError):
+        port.RSPBuilder(q, device="cpu").set_r2r_mode("tpu").build()
