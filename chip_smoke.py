@@ -1,9 +1,12 @@
 """End-to-end smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 (on a machine with one CUDA card; ``chip_profile.py`` breaks the same
-queries down by phase and device operator).
+queries down by phase and device operator).  ``--parent DIR`` names another
+checkout, such as the parent commit unpacked with ``git archive``: phase 5
+then also builds that checkout's kernels and times its merge-path and
+filter kernels in turns with this tree's on the same inputs.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -14,8 +17,14 @@ result line):
 3. kernels (random shapes) — each CUDA kernel against its plain PyTorch
             version on the same CUDA inputs, bit-exact: keys >= 2^31,
             sentinel rows, skewed fan-out, overflowing capacities; the
-            filter at every wildcard pattern and compare op with the
-            0xFFFFFFFF constant; tag combines with 0, 1, NaN and +-0.0.
+            merge path's tile edges (``merge_path_edge_args``: a fan-out
+            over >= 3 tiles, one row, a match count that is a whole number
+            of tiles, ragged capacities below it, windows at odd rows, no
+            match); the filter at every wildcard pattern and compare op with
+            the 0xFFFFFFFF constant at ``FILTER_SIZES`` rows (every tail
+            of its 4-row groups) and, predicate only, at 2^25 + 3 rows, each
+            also on a view off 16-byte alignment; tag combines with 0, 1,
+            NaN and +-0.0.
 4. main path — LUBM (``benches/lubm.py::generate_fast``, 1000 universities
             = 3,785,000 triples) and the employee-100K dataset (as
             ``bench.py`` builds it) through ``SparqlDatabase`` +
@@ -79,8 +88,11 @@ result line):
             the largest inputs its path gave it (phases 4, 6, 6c and 7), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
-            predicate-only shapes.  Runs last, after the phases that record
-            the shapes.
+            predicate-only shapes; the ``-Xptxas -v`` registers, shared
+            memory and spills of the merge-path and filter kernels each row
+            launches (and, with ``--parent``, the parent's kernels timed in
+            turns with them).  Runs last, after the phases that record the
+            shapes.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -485,6 +497,42 @@ def merge_path_args_random(seed: int, dev):
     return [(lidx_c, low_c, cum, total, n_l, n_r, cap) for cap in caps]
 
 
+MERGE_TILE = 1024  # output slots of one merge-path block (csrc/merge_join.cu)
+
+
+def merge_path_edge_args(dev) -> list:
+    """Prepass outputs at the shapes the merge-path kernel's tiles make
+    hard, each with the capacities that matter for it: one row whose fan-out
+    spans >= 3 tiles, a single compacted row, a match count that is an exact
+    multiple of the tile, capacities below it that are not (one not even a
+    multiple of 8), every tile's window starting at an odd row (and random
+    fan-outs of 1-5, so odd and even starts mix), and no match at all."""
+    import torch
+
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    t = MERGE_TILE
+    g = torch.Generator().manual_seed(5)
+    fan = torch.randint(1, 6, (3000,), generator=g)
+    cases = [
+        ([1, 5, 9], [1] + [5] * (3 * t + 100) + [9] * 7, (None, 2 * t + 1)),
+        ([5], [5] * (2 * t + 3), (None,)),
+        (range(4 * t), range(4 * t), (None, 3 * t, 5003)),
+        (range(3 * t), [0] + list(range(3 * t)), (None, 2 * t - 1)),
+        (range(3000), torch.repeat_interleave(torch.arange(3000), fan).tolist(), (None,)),
+        ([1, 2, 3], [10, 20], (1024, 5003)),
+    ]
+    out = []
+    for lk, rk, caps in cases:
+        lk = torch.tensor(list(lk), dtype=torch.int64, device=dev)
+        rk = torch.sort(torch.tensor(list(rk), dtype=torch.int64)).values.to(dev)
+        lidx_c, low_c, cum, total = K._join_prepass(lk, rk)
+        for cap in caps:
+            cap = K._round_out(int(total)) if cap is None else cap
+            out.append((lidx_c, low_c, cum, total, lk.shape[0], rk.shape[0], cap))
+    return out
+
+
 def check_merge_path(args) -> int:
     from kolibrie_tpu_torch.ops import kernels as K
 
@@ -535,6 +583,10 @@ def check_merge_join(args) -> int:
 
 # IDs for the filter checks: bit 31 set, the largest ID and the sentinel
 FILTER_IDS = (0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE, 0xFFFFFFFF)
+# Row counts of the filter checks at every pattern: every tail of the
+# kernel's 4-row groups, around 1024, and 2^20 + 3
+FILTER_SIZES = (1, 3, 5, 6, 15, 17, 1000, 1023, 1025, 300_001, (1 << 20) + 3)
+FILTER_LARGEST = (1 << 25) + 3  # the closure's fact scan + 3, predicate only
 
 
 def filter_args_random(seed: int, n: int, dev) -> list:
@@ -731,10 +783,19 @@ def check_random_shapes(dev) -> None:
             sel_args, val_args = probe_args_random(10 * a_count + p % 7, a_count, p, dev)
             check_select(sel_args)
             check_validate(val_args)
-    for n in (1, 1000, 300_001):
+    for a in merge_path_edge_args(dev):
+        check_merge_path(a)
+    for n in FILTER_SIZES:
         for s, p, o, kw in filter_args_random(n % 97, n, dev):
             check_filter((s, p, o, kw))
             check_filter((s[1:], p[1:], o[1:], kw))  # a view off 16-byte alignment
+    # the closure's scan size + 3, predicate only
+    s, p, o, _kw = filter_args_random(3, FILTER_LARGEST, dev)[0]
+    kw = {"s_const": -1, "p_const": FILTER_IDS[1], "o_const": -1, "o_op": -1, "o_cmp": 0}
+    check_filter((s, p, o, kw))
+    check_filter((s[1:], p[1:], o[1:], kw))
+    del s, p, o
+    for n in (1, 1000, 300_001):
         a, b = tag_args_random(n % 89, n, dev)
         for op in TAG_OPS:
             check_tag((a, b, op))
@@ -1491,18 +1552,84 @@ def filter_library(args):
     return None
 
 
+def ptxas_lines(build_log: str, needle: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, shared memory, stack and
+    spills) of the kernels whose mangled names hold ``needle``."""
+    out, keep = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = needle in line
+        elif keep and ("registers" in line or "stack frame" in line):
+            out.append(line.strip())
+    return out
+
+
+def ptxas_summary(build_log: str) -> str:
+    """Kernel count, most registers and spill bytes of one source's
+    ``-Xptxas -v`` report."""
+    import re
+
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", build_log)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", build_log))
+    return f"{len(regs)} kernels, at most {max(regs, default=0)} registers, {spills} bytes spilled"
+
+
+def filter_kernel_needle(kw) -> str:
+    """The template arguments ``<active clauses, o_op>`` of the filter
+    kernel that ``kw`` launches, as they appear in its mangled name."""
+    active = (kw["s_const"] >= 0) | (kw["p_const"] >= 0) << 1 | (kw["o_const"] >= 0) << 2
+    op = "in1" if kw["o_op"] < 0 else f"i{kw['o_op']}"
+    return f"ILi{int(active)}EL{op}E"
+
+
+def against_parent(name, parent_fn, fn, args) -> None:
+    """Log the parent checkout's kernel and this tree's on the same inputs,
+    timed in turns (parent, this, this, parent) in one process."""
+    p1 = time_ms(lambda: parent_fn(*args))[0]
+    n1 = time_ms(lambda: fn(*args))[0]
+    n2 = time_ms(lambda: fn(*args))[0]
+    p2 = time_ms(lambda: parent_fn(*args))[0]
+    log(f"{name}: parent {p1!r} / {p2!r} ms, this tree {n1!r} / {n2!r} ms "
+        f"(parent, this, this, parent)")
+
+
+def load_parent_kernels(root: str):
+    """The kernel module of another checkout of this repository (``--parent
+    DIR``), loaded under another name and built from that checkout's own
+    sources into its own build directory."""
+    import importlib.util
+
+    path = os.path.join(root, "kolibrie_tpu_torch", "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build_kernels()
+    return mod
+
+
 def kernels_at_main_path_shapes(
-    main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict
+    main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, parent=None
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
     each path's own count: phases 4 and 4b (the SELECT path) for the SELECT
     kernels, the closure's warm run (phase 6) for the fused filter and the
     closure's merge path, phase 6c for the ops entries, phase 7's device run
-    for the RSP path's merge path and filter."""
+    for the RSP path's merge path and filter.  The merge path's and the
+    filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
+    ``parent`` (another checkout's kernel module), that checkout's kernel
+    timed in turns with this one on the same inputs."""
     import torch
 
     from kolibrie_tpu_torch.ops import kernels as K
+
+    build = K.build_log()
+
+    def redesigned(name, fn, parent_fn, args, source, needle):
+        for line in ptxas_lines(build.get(source, ""), needle):
+            log(f"{name}: ptxas {line}")
+        if parent is not None:
+            against_parent(name, parent_fn, fn, args)
 
     cap4 = main_path["captured"]
     l4 = {
@@ -1529,6 +1656,10 @@ def kernels_at_main_path_shapes(
                   entries["launches"]["merge_join"], entries["merge_join"], K.merge_join,
                   merge_join_plain, merge_join_bytes, check_merge_join),
     ]
+    for row, args in ((line[0], cap4["merge_path_join"][1]),
+                      (line[1], closure["captured"]["merge_path_join"][1])):
+        redesigned(row["name"], K.merge_path, parent and parent.merge_path, args,
+                   "merge_join", "merge_path_join_kernel")
     # the merge-path kernel alone inside that merge_join call
     lk, _lv, rk, _rv, cap = entries["merge_join"]
     inner = (*K._join_prepass(lk, rk), lk.shape[0], rk.shape[0], K._round_out(cap))
@@ -1541,18 +1672,23 @@ def kernels_at_main_path_shapes(
     def filt_plain(s, p, o, kw):
         return K.filter_mask_plain(s, p, o, **kw)
 
-    fargs = closure["captured"]["filter_mask"][1]
-    line.append(timed_row("filter_mask", csrc + "filter_mask.cu", pk + "887",
-                          warm["filter_mask"], fargs, filt, filt_plain,
-                          filter_bytes, check_filter, filter_library(fargs)))
-    rargs = rsp["captured"]["filter_mask"][1]
-    line.append(timed_row("filter_mask[rsp]", csrc + "filter_mask.cu", pk + "887",
-                          rsp["launches"]["filter_mask"], rargs, filt, filt_plain,
-                          filter_bytes, check_filter, filter_library(rargs)))
+    def filt_parent(s, p, o, kw):
+        return parent.filter_mask(s, p, o, **kw)
+
+    for name, launches, fargs in (
+        ("filter_mask", warm["filter_mask"], closure["captured"]["filter_mask"][1]),
+        ("filter_mask[rsp]", rsp["launches"]["filter_mask"], rsp["captured"]["filter_mask"][1]),
+    ):
+        line.append(timed_row(name, csrc + "filter_mask.cu", pk + "887", launches, fargs, filt,
+                              filt_plain, filter_bytes, check_filter, filter_library(fargs)))
+        redesigned(name, filt, filt_parent, fargs, "filter_mask",
+                   filter_kernel_needle(fargs[3]))
+    rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
-                          rsp["launches"]["merge_path_join"],
-                          rsp["captured"]["merge_path_join"][1], K.merge_path,
+                          rsp["launches"]["merge_path_join"], rargs, K.merge_path,
                           K.merge_path_plain, merge_path_bytes, check_merge_path))
+    redesigned("merge_path_join[rsp]", K.merge_path, parent and parent.merge_path, rargs,
+               "merge_join", "merge_path_join_kernel")
     a, b = entries["tags"]
     library = {"min": torch.minimum, "max": torch.maximum, "mul": torch.mul}
     for op in TAG_OPS:
@@ -1567,8 +1703,16 @@ def kernels_at_main_path_shapes(
 # ------------------------------------------------------------------ main
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout (e.g. the parent commit from git archive): phase 5 "
+                         "also times its merge-path and filter kernels in turns with this tree's")
+    args = ap.parse_args(argv)
 
     # ---- 1. card
     if not torch.cuda.is_available():
@@ -1587,10 +1731,11 @@ def main() -> int:
     logs = K.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        log(f"  {name}: {ptxas_summary(text)}")
         for line in text.splitlines():
-            if ("registers" in line or "smem" in line or "stack" in line
-                    or "error" in line.lower()):
+            if "error" in line.lower() or "warning" in line.lower():
                 log(f"  {name}: {line.strip()}")
+    parent = load_parent_kernels(args.parent) if args.parent else None
 
     # ---- 3. kernels at random shapes
     check_random_shapes(dev)
@@ -1622,7 +1767,7 @@ def main() -> int:
     rsp = run_rsp_phase(dev)
 
     # ---- 5. kernels at the paths' shapes
-    kernels = kernels_at_main_path_shapes(main_path, surface, closure, entries, rsp)
+    kernels = kernels_at_main_path_shapes(main_path, surface, closure, entries, rsp, parent)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

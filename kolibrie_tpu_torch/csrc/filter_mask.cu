@@ -10,16 +10,25 @@
 // set (quoted triples) included.
 //
 // Bound on the H100: bytes.  8 bytes a row of every column an active clause
-// reads, plus the 1-byte mask written, at 3.35 TB/s.  Design: the constants
-// are kernel parameters (by value), and the kernel reads only the columns
-// whose clause is active, so a predicate-only scan (every premise of the
-// LUBM closure) moves 9 bytes a row, not 25.  Each thread takes four rows
-// (grid-stride): two 16-byte loads per active column and one 4-byte store
-// of the four mask bytes, so a warp keeps 1 KB of loads in flight per
-// column; the last n % 4 rows take one thread each.  The columns must start
-// on 16-byte boundaries and the mask on a 4-byte one (the wrapper copies a
-// view that does not).  The branches on the active clauses and the op are
-// uniform across the grid.
+// reads, plus the 1-byte mask written, at 3.35 TB/s.  Design:
+//   1. One kernel per pattern: the active clauses and the op are template
+//      parameters (8 x 7 instantiations, picked by the entry), so a scan
+//      reads only its columns and runs no branch on the pattern; the
+//      predicate-only scan of every premise is one compare a row.  The
+//      constants are kernel parameters (by value).
+//   2. One thread takes four consecutive rows and runs no loop: two 16-byte
+//      loads of each column it reads, then the compares, then one 4-byte
+//      store of the four mask bytes; the last n % 4 rows take one thread
+//      each.  As many 256-thread blocks as the rows need.
+//   On the H100 this timed fastest of the layouts tried at 1M rows (the RSP
+//   scan, whose columns stay in L2) and level with the rest at 33.5M (the
+//   closure's, about 90% of the bound, where torch.eq lands too): 16 rows a
+//   thread, 8 or 4 rows a lane with lane-interleaved 16-byte loads, grids
+//   persistent or not, and a shared-memory ring of bulk copies filled under
+//   mbarriers (PERF.md, PR 5).
+// The columns must start on 16-byte boundaries and the mask on a 4-byte
+// one (the wrapper copies a column view that does not; the mask is a fresh
+// allocation).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,69 +36,97 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 1 << 20;
-constexpr int kS = 1, kP = 2, kO = 4;
 
-struct Clauses {
+struct Consts {
   int64_t sc, pc, oc, o_cmp;
-  int active, o_op;
 };
 
-__device__ __forceinline__ bool o_ok(int64_t ov, const Clauses& q) {
-  bool m = !(q.active & kO) || ov == q.oc;
-  switch (q.o_op) {
-    case 0: return m && ov == q.o_cmp;
-    case 1: return m && ov != q.o_cmp;
-    case 2: return m && ov < q.o_cmp;
-    case 3: return m && ov <= q.o_cmp;
-    case 4: return m && ov > q.o_cmp;
-    case 5: return m && ov >= q.o_cmp;
-    default: return m;
-  }
-}
+template <int A, int OP>
+struct Pattern {
+  static constexpr bool s = (A & 1) != 0;
+  static constexpr bool p = (A & 2) != 0;
+  static constexpr bool o = (A & 4) != 0;
+  static constexpr bool read_o = o || OP >= 0;
+};
 
-__device__ __forceinline__ bool row_ok(const int64_t* __restrict__ s,
-                                       const int64_t* __restrict__ p,
-                                       const int64_t* __restrict__ o, int64_t i,
-                                       bool read_o, const Clauses& q) {
+template <int A, int OP>
+__device__ __forceinline__ bool o_ok(int64_t v, const Consts& c) {
   bool m = true;
-  if (q.active & kS) m = m && s[i] == q.sc;
-  if (q.active & kP) m = m && p[i] == q.pc;
-  if (read_o) m = m && o_ok(o[i], q);
+  if constexpr (Pattern<A, OP>::o) m = v == c.oc;
+  if constexpr (OP == 0) m = m && v == c.o_cmp;
+  if constexpr (OP == 1) m = m && v != c.o_cmp;
+  if constexpr (OP == 2) m = m && v < c.o_cmp;
+  if constexpr (OP == 3) m = m && v <= c.o_cmp;
+  if constexpr (OP == 4) m = m && v > c.o_cmp;
+  if constexpr (OP == 5) m = m && v >= c.o_cmp;
   return m;
 }
 
-// Four rows of one column compared with c: bit j set when row 4k+j matches.
-__device__ __forceinline__ unsigned eq4(const int64_t* __restrict__ col,
-                                        int64_t k, int64_t c) {
-  const longlong2* v = reinterpret_cast<const longlong2*>(col) + 2 * k;
-  const longlong2 a = v[0], b = v[1];
-  return (a.x == c) | (a.y == c) << 1 | (b.x == c) << 2 | (b.y == c) << 3;
+// one row; a column the pattern does not read is never touched
+template <int A, int OP>
+__device__ __forceinline__ bool row_ok(int64_t sv, int64_t pv, int64_t ov, const Consts& c) {
+  using P = Pattern<A, OP>;
+  bool m = true;
+  if constexpr (P::s) m = m && sv == c.sc;
+  if constexpr (P::p) m = m && pv == c.pc;
+  if constexpr (P::read_o) m = m && o_ok<A, OP>(ov, c);
+  return m;
 }
 
-__global__ void filter_mask_kernel(const int64_t* __restrict__ s,
-                                   const int64_t* __restrict__ p,
-                                   const int64_t* __restrict__ o, int64_t n,
-                                   Clauses q, bool* __restrict__ mask) {
-  const bool read_o = (q.active & kO) || q.o_op >= 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t quads = n >> 2;
-  for (int64_t k = t0; k < quads; k += stride) {
-    unsigned m = 0xF;
-    if (q.active & kS) m &= eq4(s, k, q.sc);
-    if (q.active & kP) m &= eq4(p, k, q.pc);
-    if (read_o) {
-      const longlong2* v = reinterpret_cast<const longlong2*>(o) + 2 * k;
-      const longlong2 a = v[0], b = v[1];
-      m &= o_ok(a.x, q) | o_ok(a.y, q) << 1 | o_ok(b.x, q) << 2 | o_ok(b.y, q) << 3;
+template <int A, int OP>
+__global__ void __launch_bounds__(kThreads)
+    filter_mask_kernel(const int64_t* __restrict__ s, const int64_t* __restrict__ p,
+                       const int64_t* __restrict__ o, int64_t n, Consts c,
+                       bool* __restrict__ mask) {
+  using P = Pattern<A, OP>;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t quads = n / 4;
+  if (t < quads) {
+    longlong2 vs[2] = {}, vp[2] = {}, vo[2] = {};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if constexpr (P::s) vs[j] = reinterpret_cast<const longlong2*>(s)[2 * t + j];
+      if constexpr (P::p) vp[j] = reinterpret_cast<const longlong2*>(p)[2 * t + j];
+      if constexpr (P::read_o) vo[j] = reinterpret_cast<const longlong2*>(o)[2 * t + j];
     }
-    // one byte per row, 0 or 1: the four bools of rows 4k .. 4k+3
-    reinterpret_cast<uint32_t*>(mask)[k] =
-        (m & 1) | (m >> 1 & 1) << 8 | (m >> 2 & 1) << 16 | (m >> 3 & 1) << 24;
+    unsigned w = 0;  // byte r: row 4 t + r
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      w |= unsigned(row_ok<A, OP>(vs[j].x, vp[j].x, vo[j].x, c)) << (16 * j);
+      w |= unsigned(row_ok<A, OP>(vs[j].y, vp[j].y, vo[j].y, c)) << (16 * j + 8);
+    }
+    reinterpret_cast<unsigned*>(mask)[t] = w;
   }
-  const int64_t i = (quads << 2) + t0;  // the last n % 4 rows
-  if (i < n) mask[i] = row_ok(s, p, o, i, read_o, q);
+  const int64_t i = quads * 4 + t;  // the last n % 4 rows
+  if (t < 4 && i < n) {
+    mask[i] = row_ok<A, OP>(P::s ? s[i] : 0, P::p ? p[i] : 0, P::read_o ? o[i] : 0, c);
+  }
+}
+
+template <int A, int OP>
+int launch(const int64_t* s, const int64_t* p, const int64_t* o, int64_t n, const Consts& c,
+           bool* mask, cudaStream_t stream) {
+  const int64_t threads = n / 4 > 4 ? n / 4 : 4;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
+  filter_mask_kernel<A, OP><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      s, p, o, n, c, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int A>
+int launch_op(int o_op, const int64_t* s, const int64_t* p, const int64_t* o, int64_t n,
+              const Consts& c, bool* mask, cudaStream_t stream) {
+  switch (o_op) {
+    case -1: return launch<A, -1>(s, p, o, n, c, mask, stream);
+    case 0: return launch<A, 0>(s, p, o, n, c, mask, stream);
+    case 1: return launch<A, 1>(s, p, o, n, c, mask, stream);
+    case 2: return launch<A, 2>(s, p, o, n, c, mask, stream);
+    case 3: return launch<A, 3>(s, p, o, n, c, mask, stream);
+    case 4: return launch<A, 4>(s, p, o, n, c, mask, stream);
+    case 5: return launch<A, 5>(s, p, o, n, c, mask, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -104,12 +141,22 @@ extern "C" int kolibrie_filter_mask(const void* s, const void* p, const void* o,
       reinterpret_cast<uintptr_t>(mask) % 4 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const Clauses q{sc, pc, oc, o_cmp, static_cast<int>(active), static_cast<int>(o_op)};
-  int64_t blocks = ((n + 3) / 4 + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  filter_mask_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(s), static_cast<const int64_t*>(p),
-      static_cast<const int64_t*>(o), n, q, static_cast<bool*>(mask));
-  return static_cast<int>(cudaGetLastError());
+  const Consts c{sc, pc, oc, o_cmp};
+  const auto* S = static_cast<const int64_t*>(s);
+  const auto* P = static_cast<const int64_t*>(p);
+  const auto* O = static_cast<const int64_t*>(o);
+  auto* M = static_cast<bool*>(mask);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int op = static_cast<int>(o_op);
+  switch (active) {
+    case 0: return launch_op<0>(op, S, P, O, n, c, M, st);
+    case 1: return launch_op<1>(op, S, P, O, n, c, M, st);
+    case 2: return launch_op<2>(op, S, P, O, n, c, M, st);
+    case 3: return launch_op<3>(op, S, P, O, n, c, M, st);
+    case 4: return launch_op<4>(op, S, P, O, n, c, M, st);
+    case 5: return launch_op<5>(op, S, P, O, n, c, M, st);
+    case 6: return launch_op<6>(op, S, P, O, n, c, M, st);
+    case 7: return launch_op<7>(op, S, P, O, n, c, M, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

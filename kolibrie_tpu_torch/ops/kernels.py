@@ -266,15 +266,18 @@ def _ptr_table(cols: Sequence[torch.Tensor], a_count: int):
 # emits the left row index, the right position low + (k - cumprev) and the
 # valid bit.
 #
-# Bound on the H100: bytes.  Per output slot it writes 8 + 8 + 1 bytes and
-# reads the row's (cum, low, lidx) once; at 3.35 TB/s that is the floor.
-# Design: one launch for any size.  Each 256-thread block owns 256 output
-# slots, finds its first row with one binary search over cum (the
-# merge-path partition), stages its row window (at most 257 rows, since
-# every compacted row emits >= 1 output) in shared memory, and each thread
-# binary-searches that window for its slot's row — no gather beyond the
-# row's own attributes, no chunked launcher, no 2^19 offset limit (those were
-# Mosaic constraints).
+# Bound on the H100: bytes.  Per output slot it writes 8 + 8 + 1 bytes, and
+# it reads the (cum, low, lidx) of the rows that feed the slots once; at
+# 3.35 TB/s that is the floor.  Design (csrc/merge_join.cu): one launch for
+# any size, reading ``total`` on the device.  Each 256-thread block owns
+# 1,024 consecutive slots, 4 a thread.  A tile past ``total`` writes zeros
+# and searches nothing.  Otherwise the block's two halves find its first and
+# last row with 128-ary searches over cum (one or two dependent loads; the
+# reference's wrapper precomputes the same partition with a searchsorted),
+# copy that window into shared memory, and each thread searches it once for
+# its first slot and walks forward; li and ri are staged in shared memory
+# and leave as coalesced 16-byte stores.  No chunked launcher and no 2^19
+# offset limit (those were Mosaic constraints).
 
 
 def _join_prepass(lkey: torch.Tensor, rkey: torch.Tensor):
@@ -560,6 +563,10 @@ def lex_probe_validate(ok, is_base, ch, accessors):
 # the ID columns, mask out; only the columns of active clauses are read.
 # Bound on the H100: bytes (8 per active column and row, plus the 1-byte
 # mask).  The int64 carriers double the column bytes of the reference's u32.
+# Design (csrc/filter_mask.cu): one kernel per clause pattern and o_op,
+# picked by the C entry, so no branch on the pattern runs per row; each
+# thread takes four rows with no loop (two 16-byte loads a column, one
+# 4-byte mask store).
 
 # o_op codes: the reference's _OPS (eq, ne, lt, le, gt, ge); -1 is no compare
 _FILTER_CMP = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)

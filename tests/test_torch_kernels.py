@@ -98,6 +98,19 @@ def _case(name):
         lk = np.arange(0, 2000, 2).astype(np.uint32)
         rk = np.array([100, 1000, 1998], np.uint32)
         cap = 256
+    elif name == "fanout_beyond_tile":
+        # one left row matches 2,500 right rows: over three of the merge-path
+        # kernel's 1,024-slot tiles
+        lk = np.array([2, 5, 9, 5], np.uint32)
+        rk = np.sort(np.concatenate([np.full(3, 2), np.full(2500, 5), np.full(4, 9),
+                                     rng.integers(10, 40, 50)])).astype(np.uint32)
+        cap = 6144
+    elif name == "overflow_cap_not_tile":
+        # ~4,000 matches into 3,000 slots: not a multiple of the tile (nor of
+        # 1024: merge_join_indices rounds it to 3,072, ranked keeps it)
+        lk = rng.integers(0, 30, 400).astype(np.uint32)
+        rk = np.sort(rng.integers(0, 30, 300)).astype(np.uint32)
+        cap = 3000
     else:
         raise KeyError(name)
     return lk, rk, cap, lvalid, rvalid
@@ -114,6 +127,8 @@ MERGE_CASES = [
     "keys_above_2_31",
     "sentinel_rows",
     "sparse",
+    "fanout_beyond_tile",
+    "overflow_cap_not_tile",
 ]
 
 
@@ -146,6 +161,18 @@ def test_ranked_merge_join_indices_matches_jax(seed, cap):
         jout = jpk.ranked_merge_join_indices(jnp.asarray(lk), jnp.asarray(rk), cap)
         jout = tuple(np.asarray(x) for x in jout)
     assert_join_equal(jout, tk.ranked_merge_join_indices(carrier(lk), carrier(rk), cap))
+
+
+@pytest.mark.parametrize("name", ["fanout_beyond_tile", "overflow_cap_not_tile"])
+def test_ranked_merge_join_indices_at_tile_edges_matches_jax(name):
+    lk, rk, cap, _, _ = _case(name)
+    lk, rk = lk.astype(np.uint64), rk[::-1].astype(np.uint64)  # the right side unsorted
+    with enable_x64(True):
+        jout = jpk.ranked_merge_join_indices(jnp.asarray(lk), jnp.asarray(rk), cap)
+        jout = tuple(np.asarray(x) for x in jout)
+    tout = tk.ranked_merge_join_indices(carrier(lk), carrier(rk), cap)
+    assert tout[0].shape[0] == cap
+    assert_join_equal(jout, tout)
 
 
 def test_merge_path_wrapper_takes_plain_version_on_cpu():
@@ -376,6 +403,18 @@ def test_filter_mask_matches_jax(case):
     jm = np.asarray(jpk.filter_mask(*map(jnp.asarray, (s, p, o)), **kw))
     tm = tk.filter_mask(t64(s), t64(p), t64(o), **kw)
     np.testing.assert_array_equal(tm.numpy(), jm)
+    np.testing.assert_array_equal(tk.filter_mask_plain(t64(s), t64(p), t64(o), **kw).numpy(), jm)
+
+
+@pytest.mark.parametrize("case", range(len(FILTER_CASES)))
+@pytest.mark.parametrize("n", [1, 3, 5, 6, 1023, 1025, 4097])
+def test_filter_mask_plain_matches_jax_at_group_tails(n, case):
+    """Row counts that leave each tail (1, 2, 3 rows) past the CUDA kernel's
+    4-row groups."""
+    kw = FILTER_CASES[case]
+    s, p, o = _filter_cols(80 + case, n)
+    jm = np.asarray(jpk.filter_mask(*map(jnp.asarray, (s, p, o)), **kw))
+    assert jm.shape == (n,)
     np.testing.assert_array_equal(tk.filter_mask_plain(t64(s), t64(p), t64(o), **kw).numpy(), jm)
 
 
