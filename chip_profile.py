@@ -27,9 +27,17 @@ the wall, the R2R's maintenance and fixpoint ms, the store's compaction ms
 engine's per-item window remove/add); one warm firing (the fourth) runs
 under ``torch.profiler``, and its device busy ms over the median wall of
 the other warm firings is the stream's busy share.
-Prints one JSON object per query, one for the closure and one for the RSP
-stream, the card's name and power limit, and last one JSON object with
-every breakdown.  It checks nothing: ``chip_smoke.py`` does.
+Then phase 8: each host-engine shape (``HOST_QUERIES``) and ``execute_query``
+on ``agg_dept`` as the queries above, with timers around the host engine
+(``ExecutionEngine.execute_with_ids``, synchronised: its device work and
+the one readback), the textual-order join (``_naive_eval``) and the host
+aggregate; and the statements (RULE, DELETE … WHERE, INSERT DATA, DELETE
+DATA) on a database of their own: wall, closure, compaction and WHERE ms,
+then a run under ``torch.profiler``.
+Prints one JSON object per query, one for the closure, one for the RSP
+stream and one per statement, the card's name and power limit, and last
+one JSON object with every breakdown.  It checks nothing: ``chip_smoke.py``
+does.
 """
 
 from __future__ import annotations
@@ -40,13 +48,16 @@ import sys
 import time
 
 
-def profile_query(name: str, db, sparql: str, wcoj: str) -> dict:
+def profile_query(name: str, db, sparql: str, wcoj: str, entry=None) -> dict:
     import torch
 
     from kolibrie_tpu_torch import execute_query_volcano
     from kolibrie_tpu_torch.optimizer import device_engine as DE
     from kolibrie_tpu_torch.optimizer import planner as PL
+    from kolibrie_tpu_torch.optimizer.engine import ExecutionEngine
     from kolibrie_tpu_torch.query import executor as EX
+
+    execute_query_volcano = entry or execute_query_volcano
 
     spent = {}
 
@@ -56,7 +67,7 @@ def profile_query(name: str, db, sparql: str, wcoj: str) -> dict:
             try:
                 return fn(*a, **k)
             finally:
-                if phase in ("engine", "device_plan", "topk"):
+                if phase in ("engine", "device_plan", "topk", "host_engine", "naive"):
                     torch.cuda.synchronize()
                 spent[phase] = spent.get(phase, 0.0) + (time.perf_counter() - t) * 1e3
 
@@ -74,6 +85,9 @@ def profile_query(name: str, db, sparql: str, wcoj: str) -> dict:
             (DE, "_order_limit", "topk"),
             (DE, "device_string_ranks", "string_ranks"),
             (EX, "format_results", "format"),
+            (ExecutionEngine, "execute_with_ids", "host_engine"),
+            (EX, "_naive_eval", "naive"),
+            (EX, "_group_and_aggregate_table", "host_aggregate"),
         ]
         orig = [getattr(owner, attr) for owner, attr, _ph in patched]
         for (owner, attr, phase), fn in zip(patched, orig):
@@ -177,6 +191,61 @@ def profile_closure(lubm) -> dict:
     }
 
 
+def profile_statements(dev, lubm) -> list:
+    """Phase 8's statements on a database of their own: RULE and DELETE …
+    WHERE cold, then warm with timers around the closure
+    (``Reasoner.infer_new_facts_semi_naive_parallel``), the store's
+    compaction and the DELETE's WHERE (``eval_where``), then once more under
+    ``torch.profiler``; INSERT DATA and DELETE DATA likewise."""
+    import torch
+
+    from chip_smoke import (
+        DATA_TRIPLES,
+        DELETE_STATEMENT,
+        RULE_STATEMENT,
+        SURFACE_PREFIXES,
+        StepTimer,
+        data_statement,
+    )
+    from kolibrie_tpu_torch import Reasoner, SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.core.store import ColumnarTripleStore
+    from kolibrie_tpu_torch.query import executor as EX
+
+    db = SparqlDatabase.from_arrays(lubm.dictionary.id_to_str, *lubm.store.columns(), device=dev)
+    texts = {
+        "rule": RULE_STATEMENT,
+        "delete_where": DELETE_STATEMENT,
+        "insert_data": data_statement(DATA_TRIPLES, "INSERT DATA"),
+        "delete_data": data_statement(DATA_TRIPLES, "DELETE DATA"),
+    }
+
+    def run(name):
+        execute_query_volcano(SURFACE_PREFIXES + texts[name], db)
+        len(db)  # the statement's compaction
+
+    pairs = (("rule", "delete_where"), ("insert_data", "delete_data"))
+    for pair in pairs:  # cold
+        for name in pair:
+            run(name)
+    out = {}
+    specs = [(Reasoner, "infer_new_facts_semi_naive_parallel", "closure_ms", None),
+             (ColumnarTripleStore, "compact", "compaction_ms", db.store),
+             (EX, "eval_where", "where_ms", None)]
+    for pair in pairs:
+        for name in pair:
+            with StepTimer(dev, specs) as steps:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run(name)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            out[name] = {"statement": name, "wall_ms": wall, "host_phases_ms": dict(steps.ms)}
+        for name in pair:
+            prof = device_profile(lambda: run(name))
+            out[name].update(prof, busy_share=prof["device_busy_ms"] / out[name]["wall_ms"])
+    return list(out.values())
+
+
 def profile_rsp(dev) -> dict:
     import statistics
 
@@ -250,6 +319,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chip_smoke import (
+        HOST_QUERIES,
+        NAIVE_QUERY,
         SURFACE_PREFIXES,
         SURFACE_QUERIES,
         build_queries,
@@ -258,6 +329,7 @@ def main() -> int:
     )
     from torch.profiler import ProfilerActivity, profile
 
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query
     from kolibrie_tpu_torch.ops import kernels as K
 
     card = card_line()
@@ -276,12 +348,27 @@ def main() -> int:
         out.append(profile_query(name, dbs[which], SURFACE_PREFIXES + sparql, "auto"))
         print(json.dumps(out[-1]), flush=True)
     del dbs
-    closure = profile_closure(next(db for name, db, _q, _w in queries if name == "q2"))
+    lubm = next(db for name, db, _q, _w in queries if name == "q2")
+    closure = profile_closure(lubm)
     print(json.dumps(closure), flush=True)
     rsp = profile_rsp(dev)
     print(json.dumps(rsp), flush=True)
+    # phase 8: the host engine's shapes (on a database of their own) and the statements
+    host_db = SparqlDatabase.from_arrays(
+        lubm.dictionary.id_to_str, *lubm.store.columns(), device=dev)
+    for name, sparql in HOST_QUERIES.items():
+        out.append(profile_query(name, host_db, SURFACE_PREFIXES + sparql, "auto"))
+        print(json.dumps(out[-1]), flush=True)
+    out.append(profile_query("naive", host_db, SURFACE_PREFIXES + NAIVE_QUERY, "auto",
+                             entry=execute_query))
+    print(json.dumps(out[-1]), flush=True)
+    del host_db
+    statements = profile_statements(dev, lubm)
+    for rec in statements:
+        print(json.dumps(rec), flush=True)
     print(card)
-    print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp}))
+    print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp,
+                      "statements": statements}))
     return 0
 
 

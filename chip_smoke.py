@@ -84,8 +84,27 @@ result line):
             and query ms, rounds, capacities, derived, rows, wall; events/s
             and peak device memory.  Counters zeroed just before the stream
             and read just after.
+8. statements and host-engine shapes — on a database of its own built
+            from phase 4's LUBM-1000 columns: the shapes the device lowering
+            declines, answered by the host engine on the card
+            (``HOST_QUERIES``: a cartesian COUNT over 8,000,000 rows, a
+            96-row cartesian, a string FILTER over ``STR(?c)``, a
+            clause-only UNION with a FILTER, constant-only groups true and
+            false) and ``execute_query`` on ``agg_dept`` (textual join
+            order, host aggregate), each cold then warm, route "host" /
+            "naive" and warm-run launches as ``HOST_LAUNCHES`` says; then
+            through ``execute_query_volcano`` the RULE ``memberOf`` lift
+            (640,000 facts inserted), the University0 members, DELETE …
+            WHERE of those facts (640,000 → 0 by count; Q2 still 56,120
+            rows), the RULE and the DELETE again (warm: the RULE launching
+            the fused filter and the merge path), and INSERT DATA /
+            DELETE DATA of 1,000 triples.  The same sequence runs on the
+            CPU (``device="cpu"``, the RULE's closure by the host
+            strategy): rows, counts and the store after the RULE must
+            equal.  Per statement: wall, closure and compaction ms, rounds.
+            Counters zeroed just before each run and read just after.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c and 7), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7 and 8), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -215,6 +234,53 @@ RSP_RULES = """@prefix s: <http://city/> .
 # scans (filter_mask) and its premise join + the query's two-key join
 RSP_LAUNCHES = {"filter_mask": 1, "merge_path_join": 2}
 
+# ---- phase 8: the host engine's shapes and the statements beside SELECT
+# (SURFACE_PREFIXES), each answered by the JAX package on its host engine
+HOST_QUERIES = {
+    # every university beside every department: 8,000,000 rows at LUBM-1000
+    "cartesian_count": "SELECT (COUNT(?u) AS ?n) WHERE { ?u rdf:type ub:University . "
+                       "?d rdf:type ub:Department }",
+    # the 8 departments of University0 beside the 12 professors of its Department0
+    "cartesian_small": "SELECT ?d ?p WHERE { ?d ub:subOrganizationOf <http://www.University0.edu> . "
+                       "?p ub:worksFor <http://www.Department0.University0.edu> . "
+                       "?p rdf:type ub:FullProfessor }",
+    # a string predicate over STR(?c): no device mask for it
+    "filter_function": "SELECT (COUNT(?x) AS ?n) WHERE { ?x ub:takesCourse ?c . "
+                       "?x rdf:type ub:GraduateStudent . FILTER(REGEX(STR(?c), \"Course1[0-4]$\")) }",
+    # a UNION with no group beside it and a FILTER (which sees no clause column)
+    "clause_only": "SELECT ?x ?d WHERE { { ?x ub:worksFor ?d . "
+                   "?d ub:subOrganizationOf <http://www.University0.edu> } UNION "
+                   "{ ?x ub:advisor ?d . ?d ub:worksFor <http://www.Department0.University0.edu> } "
+                   "FILTER(BOUND(?x)) }",
+    "const_true": "SELECT (COUNT(*) AS ?n) WHERE { <http://www.University0.edu> rdf:type ub:University }",
+    "const_false": "SELECT (COUNT(*) AS ?n) WHERE { <http://www.University0.edu> rdf:type ub:Department }",
+}
+# ``execute_query`` (textual join order, host aggregate) on phase 4b's agg_dept
+NAIVE_QUERY = SURFACE_QUERIES["agg_dept"][1]
+# Kernel launches of one warm run of each (the host engine's joins are the
+# ranked merge path at the exact count; a cartesian product launches
+# nothing; the clause-only group's UNION branches run on the device engine).
+# ``tests/test_torch_host_engine.py`` holds this table at LUBM-3.
+HOST_LAUNCHES = {
+    "cartesian_count": {},
+    "cartesian_small": {"merge_path_join": 1, "ranked_merge_join_indices": 1},
+    "filter_function": {"merge_path_join": 1, "ranked_merge_join_indices": 1},
+    "clause_only": {"merge_path_join": 2, "merge_join_indices": 2},
+    "const_true": {},
+    "const_false": {},
+    "naive": {"merge_path_join": 1, "ranked_merge_join_indices": 1},
+}
+RULE_STATEMENT = ("RULE :MemberUniv :- CONSTRUCT { ?x ub:memberOf ?u . } "
+                  "WHERE { ?x ub:memberOf ?d . ?d ub:subOrganizationOf ?u . }")
+RULE_LAUNCHES = {"filter_mask": 1, "merge_path_join": 1}  # the closure's, at least
+DELETE_STATEMENT = ("DELETE { ?x ub:memberOf ?u } "
+                    "WHERE { ?x ub:memberOf ?u . ?u rdf:type ub:University }")
+UNIV_MEMBERS = "SELECT (COUNT(?x) AS ?n) WHERE { ?x ub:memberOf ?u . ?u rdf:type ub:University }"
+UNIV0_MEMBERS = "SELECT ?x WHERE { ?x ub:memberOf <http://www.University0.edu> }"
+NOTE = "http://phase8.example/note"
+NOTE_COUNT = f"SELECT (COUNT(?s) AS ?n) WHERE {{ ?s <{NOTE}> ?o }}"
+DATA_TRIPLES = 1_000
+
 
 def surface_expected(universities: int, q2_rows: int, employees: int) -> dict:
     """What each phase-4b query must return at ``universities`` (LUBM has
@@ -231,6 +297,21 @@ def surface_expected(universities: int, q2_rows: int, employees: int) -> dict:
         "values": {"rows": 40},
         "quoted": {"rows": grads},
         "emp_agg": {"rows": min(employees, 500)},
+    }
+
+
+def host_expected(universities: int) -> dict:
+    """What each phase-8 host-engine query must return at ``universities``
+    (8 departments and 96 professors a university; 6 of a department's 20
+    graduate students take one of Course10-Course14)."""
+    return {
+        "cartesian_count": [[str(universities * 8 * universities)]],
+        "cartesian_small": 8 * 12,
+        "filter_function": [[str(48 * universities)]],
+        "clause_only": 96 + 80,
+        "const_true": [["1"]],
+        "const_false": [["0"]],
+        "naive": 8 * universities,
     }
 
 
@@ -296,11 +377,22 @@ class RouteSpy:
         from kolibrie_tpu_torch.optimizer import device_engine as DE
         from kolibrie_tpu_torch.query import executor as E
 
+        from kolibrie_tpu_torch.optimizer.engine import ExecutionEngine
+
         self.runs, self.post_passes, self.routes = [], 0, []
         self._saved = (DE.LoweredPlan.run, E._clause_post_passes,
-                       E.try_device_execute_aggregated, E.try_device_execute_ordered)
-        run, post, agg, ordered = self._saved
+                       E.try_device_execute_aggregated, E.try_device_execute_ordered,
+                       ExecutionEngine.execute_with_ids, E._naive_eval)
+        run, post, agg, ordered, host, naive = self._saved
         spy = self
+
+        def host_rec(*a, **k):
+            spy.routes.append("host")
+            return host(*a, **k)
+
+        def naive_rec(*a, **k):
+            spy.routes.append("naive")
+            return naive(*a, **k)
 
         def run_rec(lowered):
             spy.runs.append((lowered.root, lowered.fused_clauses))
@@ -326,18 +418,27 @@ class RouteSpy:
         E._clause_post_passes = post_rec
         E.try_device_execute_aggregated = agg_rec
         E.try_device_execute_ordered = ordered_rec
+        ExecutionEngine.execute_with_ids = host_rec
+        E._naive_eval = naive_rec
         return self
 
     def __exit__(self, *exc):
         from kolibrie_tpu_torch.optimizer import device_engine as DE
+        from kolibrie_tpu_torch.optimizer.engine import ExecutionEngine
         from kolibrie_tpu_torch.query import executor as E
 
         (DE.LoweredPlan.run, E._clause_post_passes,
-         E.try_device_execute_aggregated, E.try_device_execute_ordered) = self._saved
+         E.try_device_execute_aggregated, E.try_device_execute_ordered,
+         ExecutionEngine.execute_with_ids, E._naive_eval) = self._saved
         return False
 
     def route(self) -> str:
-        """The route of the one query run under this spy."""
+        """The route of the one query run under this spy: "naive" or
+        "host" when the legacy join order or the host engine answered its
+        group (whatever else ran beside it)."""
+        for first in ("naive", "host"):
+            if first in self.routes:
+                return first
         if self.post_passes or len(set(self.routes)) > 1:
             return "host post-pass"
         if self.routes:
@@ -357,6 +458,48 @@ class RouteSpy:
             for k, n in plan_launches(root).items():
                 out[k] = out.get(k, 0) + n
         return out
+
+
+class KernelCalls:
+    """Counts the kernel wrappers' calls in its scope under the names of
+    ``LAUNCHES`` / ``ENTRY_LAUNCHES``.  On the card each call is one launch;
+    on the CPU, where the counters stay 0, the calls are the launches a
+    card run of the same work makes."""
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.ops import kernels as K
+        from kolibrie_tpu_torch.optimizer import device_engine as DE
+        from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+        self.counts = {}
+        self._saved = [(K, "merge_path"), (K, "_merge_join_core"), (DE, "lex_probe_select"),
+                       (DE, "lex_probe_validate"), (FX, "filter_mask")]
+        self._saved = [(owner, attr, getattr(owner, attr)) for owner, attr in self._saved]
+        counts = self.counts
+
+        def counted(name, fn, when=lambda a: True):
+            def wrapped(*a, **k):
+                if when(a):
+                    counts[name(a) if callable(name) else name] = (
+                        counts.get(name(a) if callable(name) else name, 0) + 1)
+                return fn(*a, **k)
+
+            return wrapped
+
+        (_, _, path), (_, _, core), (_, _, sel), (_, _, val), (_, _, filt) = self._saved
+        K.merge_path = counted("merge_path_join", path)
+        # an entry reaches its kernel unless a side is empty
+        K._merge_join_core = counted(lambda a: a[3], core,
+                                     lambda a: a[0].shape[0] and a[1].shape[0])
+        DE.lex_probe_select = counted("lex_probe_select", sel)
+        DE.lex_probe_validate = counted("lex_probe_validate", val)
+        FX.filter_mask = counted("filter_mask", filt)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+        return False
 
 
 def log(msg: str) -> None:
@@ -1510,6 +1653,270 @@ def run_rsp_phase(dev) -> dict:
     return card
 
 
+# --------------------------------------- statements and host-engine shapes
+
+
+def data_statement(n: int, verb: str) -> str:
+    """``INSERT DATA`` / ``DELETE DATA`` of ``n`` note triples."""
+    body = " ".join(f'<http://phase8.example/item{i}> <{NOTE}> "note {i}" .' for i in range(n))
+    return f"{verb} {{ {body} }}"
+
+
+def first_count(rows) -> int:
+    return int(rows[0][0]) if rows else 0
+
+
+class StepTimer:
+    """Host-clock ms spent inside the wrapped callables, synchronised on
+    the card: ``{key: ms}``.  ``only`` restricts a method's timing to one
+    instance."""
+
+    def __init__(self, dev, specs):
+        self.specs, self.dev, self.ms = specs, dev, {}
+
+    def __enter__(self):
+        import torch
+
+        sync = torch.cuda.synchronize if self.dev.type == "cuda" else (lambda: None)
+        self._saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _k, _o in self.specs]
+        for (owner, attr, fn), (_o, _a, key, only) in zip(self._saved, self.specs):
+
+            def wrapped(*a, _fn=fn, _key=key, _only=only, **k):
+                if _only is not None and (not a or a[0] is not _only):
+                    return _fn(*a, **k)
+                sync()
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    sync()
+                    self.ms[_key] = self.ms.get(_key, 0.0) + (time.perf_counter() - t) * 1e3
+
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+        return False
+
+
+def run_statements(dev, db, twin: bool = False) -> dict:
+    """Phase 8 on ``db`` (a database of its own, so no other phase sees the
+    writes).  The host engine's shapes (``HOST_QUERIES``) through
+    ``execute_query_volcano`` and ``NAIVE_QUERY`` through ``execute_query``,
+    each cold then warm; then the statements: RULE, the University0 members,
+    DELETE … WHERE, the RULE and the DELETE once more (warm), INSERT DATA and
+    DELETE DATA, with counts between them.  Launch counters are zeroed just
+    before each run and read just after (on the CPU, the kernel wrappers'
+    calls).  ``twin``: the oracle run on the CPU: one run of each, and the
+    RULE's closure by the host strategy."""
+    import torch
+
+    from benches.lubm import LUBM_Q2
+    from kolibrie_tpu_torch import Reasoner, execute_query, execute_query_volcano
+    from kolibrie_tpu_torch.core.store import ColumnarTripleStore
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reps = 1 if twin else 2
+    out = {"queries": {}, "statements": {}, "rows": {}, "counts": {}, "launches": {},
+           "captured": {}, "peaks_above": []}
+    captured = out["captured"]
+    rounds = []
+
+    def merge_rec(fn):
+        def wrapped(*a):  # the call with the most slots, then left rows (no readback)
+            if (a[6], a[4]) > captured.get("merge_path_join", ((0, 0), None))[0]:
+                captured["merge_path_join"] = ((a[6], a[4]), a)
+            return fn(*a)
+
+        return wrapped
+
+    def one(fn, capturing=False):
+        """(result, ms, route, launches) of one run; ``capturing`` keeps the
+        largest merge-path and filter calls as phase 5's inputs."""
+        saved = (K.merge_path, FX.filter_mask, FX.DeviceFixpoint.infer)
+        orig_infer = FX.DeviceFixpoint.infer
+
+        def infer_rec(self, *a, **k):
+            res = orig_infer(self, *a, **k)
+            rounds.append(self.last_rounds)
+            return res
+
+        FX.DeviceFixpoint.infer = infer_rec
+        if capturing and on_card:
+            K.merge_path = merge_rec(saved[0])
+            FX.filter_mask = filter_recorder(captured, saved[1])
+        K.reset_launches()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        try:
+            with RouteSpy() as spy, KernelCalls() as calls:
+                sync()
+                t = time.perf_counter()
+                res = fn()
+                sync()
+                ms = (time.perf_counter() - t) * 1e3
+        finally:
+            K.merge_path, FX.filter_mask, FX.DeviceFixpoint.infer = saved
+        counters = {k: v for k, v in {**K.LAUNCHES, **K.ENTRY_LAUNCHES}.items() if v}
+        launches = counters if on_card else dict(calls.counts)
+        for k, n in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        if on_card:  # the run's peak device memory above what was held before it
+            peak = torch.cuda.max_memory_allocated()
+            out["peak_bytes"] = max(out.get("peak_bytes", 0), peak)
+            out["peaks_above"].append(peak - held)
+        return res, ms, spy.route(), launches
+
+    def select(q):
+        return execute_query_volcano(SURFACE_PREFIXES + q, db)
+
+    # ---- A1: the host engine's shapes, and the legacy textual join order
+    named = [(name, lambda q=q: select(q)) for name, q in HOST_QUERIES.items()]
+    named.append(("naive", lambda: execute_query(SURFACE_PREFIXES + NAIVE_QUERY, db)))
+    for name, fn in named:
+        runs = [one(fn) for _ in range(reps)]
+        out["rows"][name] = runs[-1][0]
+        out["queries"][name] = {
+            "cold_ms": runs[0][1], "warm_ms": runs[-1][1], "rows": len(runs[-1][0]),
+            "routes": [r[2] for r in runs], "warm_launches": runs[-1][3],
+            "warm_peak_above_bytes": out["peaks_above"][-1] if on_card else None,
+        }
+        log(f"{name}: {len(runs[-1][0])} rows, cold {runs[0][1]:.1f} ms, warm {runs[-1][1]:.1f} ms, "
+            f"routes {out['queries'][name]['routes']}, warm-run launches {runs[-1][3]}, "
+            f"peak device memory above the held {out['queries'][name]['warm_peak_above_bytes']} B")
+    out["rows"]["naive_volcano"] = select(NAIVE_QUERY)
+
+    # ---- A2: the statements
+    def count(q) -> int:
+        return first_count(select(q))
+
+    counts = out["counts"]
+    counts["univ_members_before"] = count(UNIV_MEMBERS)
+    saved_min = Reasoner._DEVICE_AUTO_MIN_FACTS
+    if twin:
+        Reasoner._DEVICE_AUTO_MIN_FACTS = 1 << 62  # the host strategy: the oracle
+    try:
+        for label in ("cold", "warm")[:reps]:
+            n0 = len(db)
+            del rounds[:]
+            specs = [(Reasoner, "infer_new_facts_semi_naive_parallel", "closure_ms", None),
+                     (ColumnarTripleStore, "compact", "compaction_ms", db.store)]
+            with StepTimer(dev, specs) as steps:
+                # the RULE's wall ends with the store compacted
+                _r, ms, _route, launches = one(
+                    lambda: (select(RULE_STATEMENT), len(db)), capturing=label == "cold")
+            inserted = len(db) - n0
+            rec = {"ms": ms, "inserted": inserted, "rounds": list(rounds), "launches": launches,
+                   **steps.ms}
+            rec["write_back_ms"] = ms - rec.get("closure_ms", 0.0) - rec.get("compaction_ms", 0.0)
+            out["statements"][f"rule_{label}"] = rec
+            if label == "cold":
+                out["after_rule"] = tuple(c.copy() for c in db.store.columns())
+                out["rows"]["univ0_members"] = select(UNIV0_MEMBERS)
+            counts[f"univ_members_after_rule_{label}"] = count(UNIV_MEMBERS)
+            n1 = len(db)
+            with StepTimer(dev, [(ColumnarTripleStore, "compact", "compaction_ms", db.store)]) as st:
+                _r, ms, _route, launches = one(lambda: (select(DELETE_STATEMENT), len(db)))
+            out["statements"][f"delete_{label}"] = {
+                "ms": ms, "removed": n1 - len(db), "launches": launches, **st.ms}
+            counts[f"univ_members_after_delete_{label}"] = count(UNIV_MEMBERS)
+            log(f"RULE {label}: {inserted} inserted, {rec}; DELETE {label}: "
+                f"{out['statements'][f'delete_{label}']}")
+    finally:
+        Reasoner._DEVICE_AUTO_MIN_FACTS = saved_min
+    out["rows"]["q2_after_delete"] = execute_query_volcano(LUBM_Q2, db)
+    counts["notes_before"], counts["len_before"] = count(NOTE_COUNT), len(db)
+    for verb in ("INSERT DATA", "DELETE DATA"):
+        text = SURFACE_PREFIXES + data_statement(DATA_TRIPLES, verb)
+        _r, ms, _route, _l = one(lambda: (execute_query_volcano(text, db), len(db)))
+        key = verb.split()[0].lower()
+        out["statements"][f"{key}_data"] = {"ms": ms}
+        counts[f"notes_after_{key}"], counts[f"len_after_{key}"] = count(NOTE_COUNT), len(db)
+    log(f"phase 8 counts {counts}; launches {out['launches']}")
+    return out
+
+
+def check_statements(card: dict, twin: dict, universities: int, q2_rows: int, on_card: bool) -> None:
+    """Phase 8's checks: rows, routes and warm-run launches of the host
+    engine's shapes; the RULE's inserted facts (both runs) and the store
+    after it equal to the CPU run's (the host strategy); the counts around
+    the DELETE and the data statements equal to the CPU run's."""
+    import numpy as np
+
+    want = host_expected(universities)
+    for name, rep in card["queries"].items():
+        rows, route = card["rows"][name], "naive" if name == "naive" else "host"
+        if rows != twin["rows"][name]:
+            raise AssertionError(f"{name}: rows differ from the CPU run")
+        got = rows if isinstance(want[name], list) else len(rows)
+        if got != want[name]:
+            raise AssertionError(f"{name}: {got}, expected {want[name]}")
+        if set(rep["routes"]) != {route} or twin["queries"][name]["routes"] != [route]:
+            raise AssertionError(f"{name}: routes {rep['routes']}, expected {route}")
+        if rep["warm_launches"] != HOST_LAUNCHES[name]:
+            raise AssertionError(f"{name}: warm-run launches {rep['warm_launches']}, "
+                                 f"the table says {HOST_LAUNCHES[name]}")
+    if card["rows"]["naive"] != card["rows"]["naive_volcano"]:
+        raise AssertionError("execute_query's rows differ from execute_query_volcano's")
+    members = 640 * universities
+    for label in ("cold", "warm"):
+        rule, delete = card["statements"][f"rule_{label}"], card["statements"][f"delete_{label}"]
+        if rule["inserted"] != members or delete["removed"] != members:
+            raise AssertionError(f"{label}: RULE inserted {rule['inserted']}, DELETE removed "
+                                 f"{delete['removed']}, expected {members}")
+        c = card["counts"]
+        if (c[f"univ_members_after_rule_{label}"], c[f"univ_members_after_delete_{label}"]) != (
+                members, 0):
+            raise AssertionError(f"{label}: university members {c}")
+    if on_card:
+        for k, n in RULE_LAUNCHES.items():
+            if card["statements"]["rule_warm"]["launches"].get(k, 0) < n:
+                raise AssertionError(f"RULE warm run launched {k} "
+                                     f"{card['statements']['rule_warm']['launches']}")
+    if not all(np.array_equal(a, b) for a, b in zip(card["after_rule"], twin["after_rule"])):
+        raise AssertionError("RULE: the store differs from the CPU run's (host strategy)")
+    for name in ("univ0_members", "q2_after_delete"):
+        if card["rows"][name] != twin["rows"][name]:
+            raise AssertionError(f"{name}: rows differ from the CPU run")
+    if len(card["rows"]["univ0_members"]) != 640 or len(card["rows"]["q2_after_delete"]) != q2_rows:
+        raise AssertionError("University0 members or Q2 after the DELETE")
+    for k, v in twin["counts"].items():
+        if card["counts"][k] != v:
+            raise AssertionError(f"{k}: {card['counts'][k]}, the CPU run {v}")
+    c = card["counts"]
+    if (c["notes_before"], c["notes_after_insert"], c["notes_after_delete"]) != (
+            0, DATA_TRIPLES, 0) or c["len_after_delete"] != c["len_before"]:
+        raise AssertionError(f"INSERT DATA / DELETE DATA counts {c}")
+
+
+def run_statements_phase(dev, lubm, universities: int, q2_rows: int) -> dict:
+    """Phase 8 on the card and on the CPU (the oracle), each on its own
+    database built from phase 4's LUBM columns."""
+    import torch
+
+    from kolibrie_tpu_torch import SparqlDatabase
+
+    def fresh(d):
+        return SparqlDatabase.from_arrays(
+            lubm.dictionary.id_to_str, *lubm.store.columns(), device=d)
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    card = run_statements(dev, fresh(dev))
+    t1 = time.perf_counter()
+    twin = run_statements(torch.device("cpu"), fresh(torch.device("cpu")), twin=True)
+    check_statements(card, twin, universities, q2_rows, on_card)
+    log(f"phase 8: card {t1 - t0:.1f} s, CPU run {time.perf_counter() - t1:.1f} s; rows, routes, "
+        f"launches and counts as expected; peak device memory {card.get('peak_bytes')} B")
+    return card
+
+
 # ------------------------------------------------------- kernel timing
 
 
@@ -1608,7 +2015,8 @@ def load_parent_kernels(root: str):
 
 
 def kernels_at_main_path_shapes(
-    main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, parent=None
+    main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
+    parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -1683,6 +2091,15 @@ def kernels_at_main_path_shapes(
                               filt_plain, filter_bytes, check_filter, filter_library(fargs)))
         redesigned(name, filt, filt_parent, fargs, "filter_mask",
                    filter_kernel_needle(fargs[3]))
+    # phase 8: its own launches, at the largest calls of its first RULE
+    st, l8 = statements["captured"], statements["launches"]
+    line.append(timed_row("merge_path_join[statements]", csrc + "merge_join.cu", pk + "181",
+                          l8.get("merge_path_join", 0), st["merge_path_join"][1], K.merge_path,
+                          K.merge_path_plain, merge_path_bytes, check_merge_path))
+    fargs = st["filter_mask"][1]
+    line.append(timed_row("filter_mask[statements]", csrc + "filter_mask.cu", pk + "887",
+                          l8.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                          check_filter, filter_library(fargs)))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -1766,8 +2183,13 @@ def main(argv=None) -> int:
     # ---- 7. the RSP engine at a 120,000-triple window
     rsp = run_rsp_phase(dev)
 
+    # ---- 8. the host engine's shapes and the statements beside SELECT
+    statements = run_statements_phase(dev, lubm, UNIVERSITIES, EXPECTED_ROWS["q2"])
+
     # ---- 5. kernels at the paths' shapes
-    kernels = kernels_at_main_path_shapes(main_path, surface, closure, entries, rsp, parent)
+    kernels = kernels_at_main_path_shapes(
+        main_path, surface, closure, entries, rsp, statements, parent
+    )
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(

@@ -13,6 +13,7 @@ unless the caller passes ``device="cpu"``.
     db = SparqlDatabase(device="cpu")
     db.parse_ntriples(...)
     rows = execute_query_volcano("SELECT ...", db)
+    execute_query_volcano("INSERT DATA { ... }", db)  # and DELETE, RULE
 
     from kolibrie_tpu_torch import Reasoner
     r = Reasoner(device="cpu")
@@ -25,17 +26,28 @@ unless the caller passes ``device="cpu"``.
     engine.add_to_stream("http://stream", WindowTriple(s, p, o), ts)
 """
 
-from kolibrie_tpu_torch.query.executor import Unsupported, execute_query_volcano
+from kolibrie_tpu_torch.core.dictionary import Dictionary
+from kolibrie_tpu_torch.core.rule import FilterCondition, Rule
+from kolibrie_tpu_torch.core.terms import Term, TriplePattern
+from kolibrie_tpu_torch.core.triple import Triple
+from kolibrie_tpu_torch.query.executor import Unsupported, execute_query, execute_query_volcano
 from kolibrie_tpu_torch.query.sparql_database import SparqlDatabase
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner
 from kolibrie_tpu_torch.rsp import RSPBuilder, RSPEngine, WindowTriple
 
 __all__ = [
+    "Dictionary",
+    "FilterCondition",
     "RSPBuilder",
     "RSPEngine",
     "Reasoner",
+    "Rule",
     "SparqlDatabase",
+    "Term",
+    "Triple",
+    "TriplePattern",
     "Unsupported",
     "WindowTriple",
+    "execute_query",
     "execute_query_volcano",
 ]

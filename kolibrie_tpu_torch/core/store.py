@@ -354,6 +354,16 @@ class ColumnarTripleStore:
         key = (int(s), int(p), int(o))
         self._pending_del.add(key)
 
+    def remove_batch(self, s: np.ndarray, p: np.ndarray, o: np.ndarray) -> None:
+        """:meth:`remove` of every row of the three columns."""
+        self._pending_del.update(
+            zip(
+                np.asarray(s, dtype=np.int64).tolist(),
+                np.asarray(p, dtype=np.int64).tolist(),
+                np.asarray(o, dtype=np.int64).tolist(),
+            )
+        )
+
     def clear(self) -> None:
         self._s = self._p = self._o = _EMPTY
         self._pending_add = []

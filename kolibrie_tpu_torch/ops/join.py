@@ -3,6 +3,13 @@ same length.  The device engine reads its results back into this form and
 the executor's post-passes (projection, DISTINCT, ORDER BY, formatting) run
 over it.
 
+Device binding tables (:data:`DeviceTable`: a dict var -> int64 tensor on
+the database's device, u32 IDs as int64 carriers) are what the host
+engine (``optimizer/engine.py``) joins for the plans the device lowering
+declines: :func:`equi_join_device` is the natural join of
+:func:`equi_join_tables` on the merge-path kernel, and its cartesian
+product, in the same row order.
+
 The reasoner's host semi-naive strategy (:mod:`kolibrie_tpu_torch.reasoner.
 strategies`) joins binding tables here with ONE vectorized sort-based
 equi-join: pack the shared-variable key columns of both sides into a single
@@ -16,8 +23,14 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from kolibrie_tpu_torch.backend import key1, pack2
+from kolibrie_tpu_torch.ops.device_join import pack_key_multi
+from kolibrie_tpu_torch.ops.kernels import ranked_merge_join_indices
 
 BindingTable = Dict[str, np.ndarray]  # all columns same length
+DeviceTable = Dict[str, torch.Tensor]  # int64 carriers, all columns same length
 
 UNBOUND = 0  # dictionary NULL sentinel doubles as the unbound marker
 
@@ -177,4 +190,83 @@ def concat_tables(tables: List[BindingTable]) -> BindingTable:
     out: BindingTable = {}
     for k in keys:
         out[k] = np.concatenate([t[k] for t in tables])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Device binding tables
+# ---------------------------------------------------------------------------
+
+
+def device_table_len(t: DeviceTable) -> int:
+    for v in t.values():
+        return int(v.shape[0])
+    return 0
+
+
+def table_to_device(table: BindingTable, device) -> DeviceTable:
+    """Upload a host binding table in one transfer."""
+    if not table:
+        return {}
+    keys = list(table)
+    stacked = np.stack([np.asarray(table[k], dtype=np.int64) for k in keys])
+    dev = torch.from_numpy(stacked).to(device)
+    return {k: dev[j] for j, k in enumerate(keys)}
+
+
+def table_to_host(table: DeviceTable) -> BindingTable:
+    """Read a device binding table back in one transfer."""
+    if not table:
+        return {}
+    keys = list(table)
+    stacked = torch.stack([table[k] for k in keys]).cpu().numpy()
+    return {k: stacked[j].astype(np.uint32) for j, k in enumerate(keys)}
+
+
+def take_rows(table: DeviceTable, mask: torch.Tensor) -> DeviceTable:
+    """The rows of ``table`` where ``mask`` holds (one host read: the
+    count)."""
+    idx = torch.nonzero(mask).squeeze(1)
+    return {k: v[idx] for k, v in table.items()}
+
+
+def _device_keys(left: DeviceTable, right: DeviceTable, shared: List[str]):
+    """Key carriers of both sides on the shared variables: one or two
+    columns pack exactly; three or more dense-rank over both sides."""
+    lc = [left[v] for v in shared]
+    rc = [right[v] for v in shared]
+    if len(shared) == 1:
+        return key1(lc[0]), key1(rc[0])
+    if len(shared) == 2:
+        return pack2(lc[0], lc[1]), pack2(rc[0], rc[1])
+    lvalid = torch.ones(lc[0].shape[0], dtype=torch.bool, device=lc[0].device)
+    rvalid = torch.ones(rc[0].shape[0], dtype=torch.bool, device=rc[0].device)
+    return pack_key_multi(lc, rc, lvalid, rvalid)
+
+
+def equi_join_device(left: DeviceTable, right: DeviceTable) -> DeviceTable:
+    """:func:`equi_join_tables` over device tables: the natural join on the
+    shared variables through the merge-path kernel
+    (:func:`ranked_merge_join_indices` at the exact match count), or the
+    cartesian product when none are shared.  Rows come in the host join's
+    order: left row by left row, each left row's matches in the right
+    side's stable-sorted key order (the product: ``np.repeat`` /
+    ``np.tile``)."""
+    shared = sorted(set(left) & set(right))
+    ln, rn = device_table_len(left), device_table_len(right)
+    names = list(dict.fromkeys([*left, *right]))
+    if ln == 0 or rn == 0:
+        cols = [*left.values(), *right.values()]
+        return {k: cols[0].new_empty(0) for k in names}
+    dev = next(iter(left.values())).device
+    if not shared:
+        li = torch.arange(ln, device=dev).repeat_interleave(rn)
+        ri = torch.arange(rn, device=dev).repeat(ln)
+    else:
+        lkey, rkey = _device_keys(left, right, shared)
+        li, ri, _valid, _total = ranked_merge_join_indices(lkey, rkey)
+    out: DeviceTable = {k: col[li] for k, col in left.items()}
+    for k, col in right.items():
+        if k not in out:
+            out[k] = col[ri]
     return out

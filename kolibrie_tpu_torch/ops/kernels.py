@@ -348,15 +348,25 @@ def _round_out(cap: int) -> int:
     return max(1, -(-cap // CAP_GRANULE)) * CAP_GRANULE
 
 
-def _merge_join_core(lkey, rkey, cap_r: int, entry: str):
+def _merge_join_core(lkey, rkey, cap_r: Optional[int], entry: str):
+    """Prepass and merge-path kernel.  ``cap_r=None``: the outputs hold
+    exactly the matches, their count read from the prepass (one host
+    read)."""
     ln, rn = lkey.shape[0], rkey.shape[0]
     dev = lkey.device
     if ln == 0 or rn == 0:
+        cap_r = cap_r or 0
         z = torch.zeros(cap_r, dtype=torch.int64, device=dev)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         return z, z.clone(), torch.zeros(cap_r, dtype=torch.bool, device=dev), zero
     lidx_c, low_c, cum, total = _join_prepass(lkey, rkey)
+    exact = cap_r is None
+    if exact:
+        n = int(total)
+        cap_r = _round_out(n)
     li, ri, valid = merge_path(lidx_c, low_c, cum, total, ln, rn, cap_r)
+    if exact:
+        li, ri, valid = li[:n], ri[:n], valid[:n]
     if dev.type == "cuda":
         ENTRY_LAUNCHES[entry] += 1
     return li, ri, valid, total
@@ -383,16 +393,21 @@ def merge_join_indices(
     return _merge_join_core(lkey, rkey_sorted, _round_out(cap), "merge_join_indices")
 
 
-def ranked_merge_join_indices(lkey: torch.Tensor, rkey: torch.Tensor, cap: int):
+def ranked_merge_join_indices(
+    lkey: torch.Tensor, rkey: torch.Tensor, cap: Optional[int] = None
+):
     """Merge join for arbitrary (packed, unsorted) key carriers: dense-rank
     both sides over their sorted union (equal keys get equal ranks,
     distinct padding keys stay distinct), sort the right ranks, run the
     merge-path kernel and map ``ri`` back through the sort permutation.
     Same ``(li, ri, valid, total)`` contract as
     :func:`kolibrie_tpu_torch.ops.device_join.join_indices`, with outputs
-    of exactly ``cap``."""
+    of exactly ``cap``; ``cap=None`` sizes them to the exact match count,
+    read from the prepass (one host read).  Pairs come left row by left
+    row, each left row's matches in the right side's stable-sorted order."""
     dev = lkey.device
     if lkey.shape[0] == 0 or rkey.shape[0] == 0:
+        cap = cap or 0
         z = torch.zeros(cap, dtype=torch.int64, device=dev)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         return z, z.clone(), torch.zeros(cap, dtype=torch.bool, device=dev), zero
@@ -401,9 +416,11 @@ def ranked_merge_join_indices(lkey: torch.Tensor, rkey: torch.Tensor, cap: int):
     rrank = torch.searchsorted(union, rkey)
     rorder = torch.argsort(rrank, stable=True)
     li, rpos, valid, total = _merge_join_core(
-        lrank, rrank[rorder], _round_out(cap), "ranked_merge_join_indices"
+        lrank, rrank[rorder], None if cap is None else _round_out(cap),
+        "ranked_merge_join_indices",
     )
-    li, rpos, valid = li[:cap], rpos[:cap], valid[:cap]
+    if cap is not None:
+        li, rpos, valid = li[:cap], rpos[:cap], valid[:cap]
     ri = torch.where(valid, rorder[rpos], 0)
     return li, ri, valid, total
 

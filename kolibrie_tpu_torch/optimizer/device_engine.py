@@ -36,7 +36,9 @@ per-operator stats keys (``scan{i}``, ``join{i}``, ``filter{i}``,
 
 Shapes the device engine does not lower (cartesian joins, non-constant
 string patterns, UDFs, doubly-nested quoted patterns) raise
-:class:`Unsupported`.
+:class:`Unsupported` from :func:`lower_plan`; the executor then runs the
+plan on the host engine (``optimizer/engine.py``), whose scans read the
+same two-tier mirror through :func:`scan_rows`.
 """
 
 from __future__ import annotations
@@ -79,7 +81,6 @@ __all__ = [
     "Unsupported",
     "LoweredPlan",
     "lower_plan",
-    "try_device_execute",
     "try_device_execute_aggregated",
     "try_device_execute_ordered",
     "aggregate_table",
@@ -87,6 +88,8 @@ __all__ = [
     "device_quoted",
     "device_string_ranks",
     "template_scan_cap",
+    "scan_range",
+    "scan_rows",
     "string_filter_mask",
     "numeric_filter_mask",
 ]
@@ -1342,30 +1345,11 @@ class LoweredPlan:
     # ------------------------------------------------------------- assembly
 
     def _scan_ranges(self) -> np.ndarray:
-        """Host searchsorted over the base + delta sorted orders →
-        ``(lo_base, n_base, lo_delta, n_delta)`` rows.  The base window
-        INCLUDES deleted rows (the tombstone positions mask them)."""
-        store = self.db.store
-        pos_of = {"s": 0, "p": 1, "o": 2}
+        """:func:`scan_range` of every scan as ``(lo_base, n_base,
+        lo_delta, n_delta)`` rows."""
         out = np.zeros((max(len(self.scan_descs), 1), 4), dtype=np.int64)
         for i, (order_name, consts) in enumerate(self.scan_descs):
-            segments = (store.base_order(order_name), store.delta_order(order_name))
-            for j, order in enumerate(segments):
-                keys = [
-                    consts[pos_of[c]]
-                    for c in order.perm
-                    if consts[pos_of[c]] is not None
-                ]
-                if any(k < 0 for k in keys):
-                    continue  # unknown constant: (0, 0) — matches nothing
-                if not keys:
-                    lo, hi = 0, len(order)
-                elif len(keys) == 1:
-                    lo, hi = order.range0(keys[0])
-                else:
-                    lo, hi = order.range01(keys[0], keys[1])
-                out[i, 2 * j] = lo
-                out[i, 2 * j + 1] = hi - lo
+            out[i] = scan_range(self.db.store, order_name, consts)
         return out
 
     def _with_caps(self, node, scan_caps: Dict[int, int], join_caps: List[int]):
@@ -1560,6 +1544,69 @@ class LoweredPlan:
         return self.to_table(*self.converge(self.run()))
 
 
+def scan_range(store, order_name: str, consts) -> Tuple[int, int, int, int]:
+    """Host searchsorted over the base and delta sorted orders of
+    ``order_name``, whose permutation starts with the bound positions of
+    ``consts`` (an ID, or None for a variable, per canonical position) →
+    ``(lo_base, n_base, lo_delta, n_delta)``.  The base window INCLUDES
+    deleted rows (the tombstone positions mask them); an unknown constant
+    (negative) gives empty windows."""
+    pos_of = {"s": 0, "p": 1, "o": 2}
+    out = [0, 0, 0, 0]
+    segments = (store.base_order(order_name), store.delta_order(order_name))
+    for j, order in enumerate(segments):
+        keys = [consts[pos_of[c]] for c in order.perm if consts[pos_of[c]] is not None]
+        if any(k < 0 for k in keys):
+            continue
+        if not keys:
+            lo, hi = 0, len(order)
+        elif len(keys) == 1:
+            lo, hi = order.range0(keys[0])
+        elif len(keys) == 2:
+            lo, hi = order.range01(keys[0], keys[1])
+        else:
+            lo, hi = order.range012(keys[0], keys[1], keys[2])
+        out[2 * j] = lo
+        out[2 * j + 1] = hi - lo
+    return tuple(out)
+
+
+def scan_rows(db, consts) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Canonical ``(s, p, o)`` device columns of the live triples matching
+    ``consts`` (an ID, or None for a variable, per position): the rows of
+    ``store.match`` in its order (the chosen sort order's, every column
+    sorted), read from the two-tier device mirror (the base window less
+    its tombstones, then the delta window, merged by two stable sorts when
+    the delta holds rows).  Window sizes come from host binary searches,
+    so nothing is read back from the device."""
+    store = db.store
+    bound = frozenset(i for i, c in enumerate(consts) if c is not None)
+    order_name = LoweredPlan._DEFAULT_ORDER.get(bound, "spo")
+    bcols, dcols, del_pos = store.device_segment(order_name)
+    lo_b, n_b, lo_d, n_d = scan_range(store, order_name, consts)
+    dels = store.delta_del_positions(order_name)
+    n_del = int(np.searchsorted(dels, lo_b + n_b) - np.searchsorted(dels, lo_b))
+    if n_del == 0:
+        base = [c[lo_b : lo_b + n_b] for c in bcols]
+    else:
+        src = lo_b + torch.arange(n_b, dtype=torch.int64, device=db.device)
+        jd = torch.searchsorted(del_pos, src).clamp_(0, del_pos.shape[0] - 1)
+        keep = del_pos[jd] != src
+        n_live = n_b - n_del
+        dest = torch.where(keep, torch.cumsum(keep, 0) - 1, n_live)
+        live = torch.zeros(n_live + 1, dtype=torch.int64, device=db.device)
+        live[dest] = src
+        base = [c[live[:n_live]] for c in bcols]
+    if n_d == 0:
+        return tuple(base)
+    cols = [torch.cat([b, d[lo_d : lo_d + n_d]]) for b, d in zip(base, dcols)]
+    pos_of = {"s": 0, "p": 1, "o": 2}
+    c0, c1, c2 = (cols[pos_of[c]] for c in ColumnarTripleStore._ORDER_PERMS[order_name])
+    by2 = torch.argsort(c2, stable=True)
+    order = by2[torch.argsort(pack2(c0[by2], c1[by2]), stable=True)]
+    return tuple(c[order] for c in cols)
+
+
 def string_filter_mask(db, name: str, pattern: str, which: str) -> np.ndarray:
     """Per-ID verdicts for a constant-pattern string predicate: ``which`` =
     'dict' evaluates over every dictionary term, 'quoted' over every quoted
@@ -1682,16 +1729,13 @@ def device_quoted(db):
 
 
 def lower_plan(db, plan, anti_plans=(), union_groups=(), optional_plans=()) -> LoweredPlan:
+    """Lower ``plan`` for the database's device, with the MINUS/NOT branch
+    plans (``anti_plans``: anti-joins), UNION groups (tuples of branch
+    plans: concatenation joined in) and OPTIONAL branch plans (left-outer
+    joins) composed over it in the host post-pass order.  Raises
+    :class:`Unsupported` for shapes the engine does not lower; only
+    lowering raises it, never :meth:`LoweredPlan.execute`."""
     return LoweredPlan(db, plan, anti_plans, union_groups, optional_plans)
-
-
-def try_device_execute(db, plan, anti_plans=(), union_groups=(), optional_plans=()) -> BindingTable:
-    """Lower and run ``plan`` on the database's device, with the MINUS/NOT
-    branch plans (``anti_plans``: anti-joins), UNION groups (tuples of
-    branch plans: concatenation joined in) and OPTIONAL branch plans
-    (left-outer joins) composed over it in the host post-pass order.
-    Raises :class:`Unsupported` for shapes the engine does not lower."""
-    return lower_plan(db, plan, anti_plans, union_groups, optional_plans).execute()
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,22 @@
-"""Query entry point of the PyTorch port: parse → plan → device engine → host
-post-passes → format.
+"""Query entry points of the PyTorch port: parse → plan → device engine →
+host post-passes → format, and the statements beside SELECT.
 
-Port of the SELECT path of ``kolibrie_tpu/query/executor.py``
-(``execute_query_volcano``), with the reference's routing between the
-device program and the host post-passes:
+Port of ``kolibrie_tpu/query/executor.py`` (``execute_query_volcano``,
+``execute_combined``, the legacy ``execute_query``), with the reference's
+routing between the device program, the host engine and the host
+post-passes:
 
 - plain sub-SELECTs fold into the group (:mod:`.subquery_inline`); the
   group's BGP, FILTERs and VALUES run on the device engine
   (:mod:`kolibrie_tpu_torch.optimizer.device_engine`), and its UNION /
   OPTIONAL / MINUS / NOT clauses fuse into the same device program when
   every branch is a plain BGP (all or nothing);
+- a plan the device lowering declines with :class:`Unsupported` (a
+  cartesian join, a filter function it has no mask for, a constant-only
+  group, the empty group of a clause-only WHERE) runs on the host engine,
+  :meth:`ExecutionEngine.execute_with_ids`, which still runs on the
+  database's device; ``use_optimizer=False`` (``execute_query``) joins
+  the patterns in textual order (:func:`_naive_eval`), on the device too;
 - otherwise the clauses run as host post-passes over device tables: each
   branch is its own :func:`eval_where`; a non-inlinable subquery joins on
   the host too;
@@ -19,12 +26,14 @@ device program and the host post-passes:
   (``try_device_execute_ordered``) where it applies;
 - BIND, FILTERs over BIND outputs, projection and SELECT expressions,
   DISTINCT, host ORDER BY, formatting and LIMIT/OFFSET run on the host over
-  the read-back table.
+  the read-back table;
+- INSERT DATA, DELETE DATA and DELETE … WHERE (its WHERE through
+  :func:`eval_where`), and RULE definitions
+  (:mod:`kolibrie_tpu_torch.reasoner.rule_runtime`, the closure on the
+  device fixpoint) run through :func:`execute_combined`.
 
-What the reference runs on its host engine raises :class:`Unsupported`
-with the construct's name here (updates and declarations, WINDOW blocks,
-cartesian products, shapes the device engine does not lower).  Nothing
-falls back to a host engine.
+WINDOW blocks and the ML declarations (MODEL, NEURAL RELATION, TRAIN,
+ML.PREDICT) raise :class:`Unsupported` with the construct's name.
 """
 
 from __future__ import annotations
@@ -34,31 +43,49 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from kolibrie_tpu_torch.core.dictionary import QUOTED_BIT, display_form
+from kolibrie_tpu_torch.core.triple import Triple
 from kolibrie_tpu_torch.ops.join import (
     UNBOUND,
     BindingTable,
     anti_join_tables,
     concat_tables,
+    equi_join_device,
     equi_join_tables,
     left_outer_join_tables,
     table_len,
+    table_to_host,
 )
 from kolibrie_tpu_torch.ops.unique import unique_table
 from kolibrie_tpu_torch.optimizer.device_engine import (
     Unsupported,
     lower_plan,
-    try_device_execute,
     try_device_execute_aggregated,
     try_device_execute_ordered,
 )
 from kolibrie_tpu_torch.optimizer.engine import ExecutionEngine, resolve_pattern
 from kolibrie_tpu_torch.optimizer.planner import Streamertail, build_logical_plan
 from kolibrie_tpu_torch.query import ast as A
-from kolibrie_tpu_torch.query.ast import OrderCondition, SelectQuery, Var, WhereClause
+from kolibrie_tpu_torch.query.ast import (
+    CombinedQuery,
+    DeleteClause,
+    InsertClause,
+    OrderCondition,
+    PatternTerm,
+    SelectQuery,
+    Var,
+    WhereClause,
+)
 from kolibrie_tpu_torch.query.parser import parse_combined_query
 from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
 
-__all__ = ["Unsupported", "execute_query_volcano", "eval_where", "format_results"]
+__all__ = [
+    "Unsupported",
+    "execute_query_volcano",
+    "execute_query",
+    "execute_combined",
+    "eval_where",
+    "format_results",
+]
 
 Rows = List[List[str]]
 
@@ -122,69 +149,90 @@ def _has_clauses(where: WhereClause) -> bool:
     return bool(where.minus or where.not_blocks or where.unions or where.optionals)
 
 
-def eval_where(db, where: WhereClause, prebuilt_plan=None, prebuilt_lowered=None) -> BindingTable:
+def _lower_or_none(db, plan, anti_plans=(), union_groups=(), optional_plans=()):
+    """The device lowering of ``plan``, or None where it declines with
+    :class:`Unsupported`.  Only the lowering is inside the ``try``: a run
+    failure (a CUDA error, a kernel build, a capacity that does not
+    converge) propagates."""
+    try:
+        return lower_plan(db, plan, anti_plans, union_groups, optional_plans)
+    except Unsupported:
+        return None
+
+
+def eval_where(
+    db, where: WhereClause, use_optimizer: bool = True, prebuilt_plan=None, prebuilt_lowered=None
+) -> BindingTable:
     """Evaluate a group graph pattern to a binding table (IDs).
 
-    ``prebuilt_plan`` / ``prebuilt_lowered``: the physical plan and the
-    device lowering the aggregate route already made for this WHERE (the
-    lowering ``False`` when it failed), so neither runs twice."""
+    ``use_optimizer=False`` joins the patterns in textual order
+    (:func:`_naive_eval`).  ``prebuilt_plan`` / ``prebuilt_lowered``: the
+    physical plan and the device lowering the aggregate route already made
+    for this WHERE (the lowering ``False`` when it declined), so neither
+    runs twice."""
     # fold plain sub-SELECTs into the group before planning: one device
     # plan instead of materialize-then-join on the host
     where = inline_subqueries(where)
     _check_where(where)
+    engine = ExecutionEngine(db, subquery_eval=lambda sq: eval_select_to_table(db, sq.query))
     resolved = [resolve_pattern(db, p) for p in where.patterns]
     # filters referencing BIND outputs can only run after the binds
     bind_vars = {b.var for b in where.binds}
     plan_filters = [f for f in where.filters if not (set(_filter_vars(f)) & bind_vars)]
     post_bind_filters = [f for f in where.filters if set(_filter_vars(f)) & bind_vars]
-    planner = Streamertail(db.get_or_build_stats())
-    plan = prebuilt_plan
-    if plan is None:
-        plan = planner.find_best_plan(
-            build_logical_plan(resolved, plan_filters, [], where.values)
-        )
     fused_clauses = False
-    table = None
-    if prebuilt_lowered is not None and prebuilt_lowered is not False:
-        table = prebuilt_lowered.execute()
-        fused_clauses = prebuilt_lowered.fused_clauses
-    elif prebuilt_lowered is None and not where.subqueries and _has_clauses(where):
-        # UNION / OPTIONAL / MINUS / NOT fuse into the device program in the
-        # order the host post-passes apply them.  All or nothing: a single
-        # non-BGP branch keeps every clause on the post-pass path.
-        clauses = _clause_plans(db, planner, where)
-        if clauses is not None:
-            union_groups, optional_plans, anti_plans = clauses
-            main_plan = plan
-            if not where.patterns and where.values is None:
-                # clause-only group: the first union/optional stands alone
-                # (plan None).  Filters attached to an empty plan never see
-                # clause columns on the host path, so only a filter-free
-                # group keeps exact parity.
-                if where.filters or not (union_groups or optional_plans):
-                    main_plan = False
-                else:
-                    main_plan = None
-            if main_plan is not False:
-                try:
-                    lowered = lower_plan(db, main_plan, anti_plans, union_groups, optional_plans)
-                except Unsupported:
-                    lowered = None  # the plain plan + host post-passes
+    if use_optimizer:
+        planner = Streamertail(db.get_or_build_stats())
+        plan = prebuilt_plan
+        if plan is None:
+            plan = planner.find_best_plan(
+                build_logical_plan(resolved, plan_filters, [], where.values)
+            )
+        table = None
+        if prebuilt_lowered is not None and prebuilt_lowered is not False:
+            table = prebuilt_lowered.execute()
+            fused_clauses = prebuilt_lowered.fused_clauses
+        elif prebuilt_lowered is None:
+            if not where.subqueries and _has_clauses(where):
+                # UNION / OPTIONAL / MINUS / NOT fuse into the device program
+                # in the order the host post-passes apply them.  All or
+                # nothing: a single non-BGP branch keeps every clause on the
+                # post-pass path.
+                clauses = _clause_plans(db, planner, where)
+                if clauses is not None:
+                    union_groups, optional_plans, anti_plans = clauses
+                    main_plan = plan
+                    if not where.patterns and where.values is None:
+                        # clause-only group: the first union/optional stands
+                        # alone (plan None).  Filters attached to an empty
+                        # plan never see clause columns on the host path, so
+                        # only a filter-free group keeps exact parity.
+                        if where.filters or not (union_groups or optional_plans):
+                            main_plan = False
+                        else:
+                            main_plan = None
+                    if main_plan is not False:
+                        lowered = _lower_or_none(
+                            db, main_plan, anti_plans, union_groups, optional_plans
+                        )
+                        if lowered is not None:
+                            table = lowered.execute()
+                            fused_clauses = True
+            if table is None:
+                lowered = _lower_or_none(db, plan)
                 if lowered is not None:
                     table = lowered.execute()
-                    fused_clauses = True
-    if table is None:
-        if not where.patterns and where.values is None:
-            # the reference evaluates the empty group on its host engine
-            raise Unsupported("group of clauses only, not fused")
-        # raises Unsupported where the reference runs its host engine
-        table = try_device_execute(db, plan)
+        if table is None:
+            # the lowering declined this plan: the reference's host engine,
+            # run on the database's device
+            table = engine.execute_with_ids(plan)
+    else:
+        table = _naive_eval(engine, resolved, where, plan_filters)
     # subqueries that did not inline join in on the host
     for sq in where.subqueries:
         table = equi_join_tables(table, eval_select_to_table(db, sq.query))
     if _has_clauses(where) and not fused_clauses:
-        table = _clause_post_passes(db, table, where)
-    engine = ExecutionEngine(db)
+        table = _clause_post_passes(db, table, where, use_optimizer)
     # BINDs after joins (may reference any bound variable)
     for b in where.binds:
         table = dict(table)
@@ -195,11 +243,32 @@ def eval_where(db, where: WhereClause, prebuilt_plan=None, prebuilt_lowered=None
     return table
 
 
-def _clause_post_passes(db, table: BindingTable, where: WhereClause) -> BindingTable:
+def _naive_eval(engine: ExecutionEngine, patterns, where: WhereClause, filters) -> BindingTable:
+    """Legacy sequential join path (``execute_query``): the patterns joined
+    in textual order, then the VALUES, then the filters, on the device;
+    the table is read back once."""
+    table = None
+    for pat in patterns:
+        t = engine._scan(pat)
+        table = t if table is None else equi_join_device(table, t)
+    if table is None:
+        table = {}
+        if where.values is not None:
+            table = engine._values_table(where.values)
+    elif where.values is not None:
+        table = equi_join_device(table, engine._values_table(where.values))
+    for f in filters:
+        table = engine.filter_device(f, table)
+    return table_to_host(table)
+
+
+def _clause_post_passes(
+    db, table: BindingTable, where: WhereClause, use_optimizer: bool = True
+) -> BindingTable:
     """UNION, OPTIONAL, MINUS and NOT over ``table`` on the host, each
     branch table from its own :func:`eval_where` (on the device)."""
     for groups in where.unions:
-        parts = [eval_where(db, g) for g in groups]
+        parts = [eval_where(db, g, use_optimizer) for g in groups]
         keys = set()
         for t in parts:
             keys |= set(t)
@@ -217,7 +286,7 @@ def _clause_post_passes(db, table: BindingTable, where: WhereClause) -> BindingT
         else:
             table = union_table
     for opt in where.optionals:
-        opt_table = eval_where(db, opt)
+        opt_table = eval_where(db, opt, use_optimizer)
         if (
             not table
             and not where.patterns
@@ -230,9 +299,11 @@ def _clause_post_passes(db, table: BindingTable, where: WhereClause) -> BindingT
         else:
             table = left_outer_join_tables(table, opt_table)
     for m in where.minus:
-        table = anti_join_tables(table, eval_where(db, m))
+        table = anti_join_tables(table, eval_where(db, m, use_optimizer))
     for nb in where.not_blocks:
-        table = anti_join_tables(table, eval_where(db, WhereClause(patterns=nb.patterns)))
+        table = anti_join_tables(
+            table, eval_where(db, WhereClause(patterns=nb.patterns), use_optimizer)
+        )
     return table
 
 
@@ -261,15 +332,15 @@ def _is_aggregate(q: SelectQuery) -> bool:
     return bool(q.group_by) or any(i.kind == "agg" for i in q.select)
 
 
-def eval_select_to_table(db, q: SelectQuery) -> BindingTable:
+def eval_select_to_table(db, q: SelectQuery, use_optimizer: bool = True) -> BindingTable:
     """Run a SELECT down to a binding table projected to its variables
     (aggregates resolved)."""
     prebuilt_plan = prebuilt_lowered = None
-    if _is_aggregate(q):
+    if _is_aggregate(q) and use_optimizer:
         table, prebuilt_plan, prebuilt_lowered = _try_device_aggregate(db, q)
         if table is not None:
             return unique_table(table) if q.distinct else table
-    table = eval_where(db, q.where, prebuilt_plan, prebuilt_lowered)
+    table = eval_where(db, q.where, use_optimizer, prebuilt_plan, prebuilt_lowered)
     if _is_aggregate(q):
         table = _group_and_aggregate_table(db, table, q)
     elif not q.select_all():
@@ -307,20 +378,16 @@ def _try_device_aggregate(
     # aggregation over the post-passed table
     clauses = _clause_plans(db, planner, w)
     if clauses is None:
-        # eval_where runs the plain device BGP + host post-passes
-        try:
-            return None, plan, lower_plan(db, plan)
-        except Unsupported:
-            return None, plan, False
+        # eval_where runs the plain device BGP (or the host engine) + host
+        # post-passes
+        return None, plan, _lower_or_none(db, plan) or False
     union_groups, optional_plans, anti_plans = clauses
-    try:
-        lowered = lower_plan(db, plan, anti_plans, union_groups, optional_plans)
-    except Unsupported:
+    lowered = _lower_or_none(db, plan, anti_plans, union_groups, optional_plans)
+    if lowered is None:
+        # the plain BGP may still lower even if a branch cannot; else the
+        # host engine runs it
         if anti_plans or union_groups or optional_plans:
-            try:  # the plain BGP may still lower even if a branch cannot
-                return None, plan, lower_plan(db, plan)
-            except Unsupported:
-                pass
+            return None, plan, _lower_or_none(db, plan) or False
         return None, plan, False
     return try_device_execute_aggregated(db, plan, q, lowered=lowered), plan, lowered
 
@@ -575,13 +642,13 @@ def format_results(db, table: BindingTable, q: SelectQuery, sort_rows: bool = Fa
     return out.tolist()
 
 
-def execute_select(db, q: SelectQuery) -> Rows:
-    if q.order_by and q.limit is not None:
+def execute_select(db, q: SelectQuery, use_optimizer: bool = True) -> Rows:
+    if use_optimizer and q.order_by and q.limit is not None:
         # ORDER BY + LIMIT on the device: top-k sort, O(limit) readback
         rows = try_device_execute_ordered(db, q)
         if rows is not None:
             return rows
-    table = eval_select_to_table(db, q)
+    table = eval_select_to_table(db, q, use_optimizer)
     table = _order_table(db, table, q.order_by)
     rows = format_results(db, table, q, sort_rows=not q.order_by)
     start = q.offset or 0
@@ -589,26 +656,102 @@ def execute_select(db, q: SelectQuery) -> Rows:
     return rows[start:end]
 
 
-def execute_query_volcano(sparql: str, db) -> Rows:
-    """Run one SPARQL SELECT on ``db``'s device and return its rows as
-    display strings (the reference's ``execute_query_volcano``)."""
-    db.register_prefixes_from_query(sparql)
-    cq = parse_combined_query(sparql, db.prefixes)
+# --------------------------------------------------------------------------
+# Statements
+# --------------------------------------------------------------------------
+
+
+def process_insert_clause(db, insert: InsertClause) -> int:
+    count = 0
+    for pat in insert.triples:
+        ids = []
+        for t in (pat.subject, pat.predicate, pat.object):
+            if t.is_var:
+                raise ValueError("INSERT DATA cannot contain variables")
+            ids.append(_encode_pattern_term(db, t))
+        db.add_triple(Triple(*ids))
+        count += 1
+    return count
+
+
+def _encode_pattern_term(db, t: PatternTerm) -> int:
+    if t.kind == "quoted":
+        s, p, o = t.value
+        return db.quoted.intern(
+            _encode_pattern_term(db, s),
+            _encode_pattern_term(db, p),
+            _encode_pattern_term(db, o),
+        )
+    return db.dictionary.encode(db.expand_term(t.value))
+
+
+def process_delete_clause(db, delete: DeleteClause) -> int:
+    """DELETE DATA, or DELETE … WHERE: the WHERE's bindings (through
+    :func:`eval_where`, on the device) substituted into the templates, the
+    rows removed as one batch.  Returns the count of templates applied."""
+    if delete.where is None:
+        count = 0
+        for pat in delete.triples:
+            ids = [_encode_pattern_term(db, t) for t in (pat.subject, pat.predicate, pat.object)]
+            db.delete_triple(Triple(*ids))
+            count += 1
+        return count
+    table = eval_where(db, delete.where)
+    n = table_len(table)
+    for pat in delete.triples:
+        cols = []
+        for t in (pat.subject, pat.predicate, pat.object):
+            if t.is_var:
+                col = table.get(t.value)
+                if col is None:
+                    col = np.full(n, UNBOUND, dtype=np.uint32)
+                cols.append(col)
+            else:
+                cols.append(np.full(n, _encode_pattern_term(db, t), dtype=np.uint32))
+        db.store.remove_batch(*cols)
+    return n * len(delete.triples)
+
+
+def execute_combined(db, cq: CombinedQuery) -> Rows:
+    """Run a parsed statement: RULE definitions, then DELETE, then INSERT,
+    then the SELECT (the reference's ``execute_combined``).  REGISTER and
+    RETRIEVE carry nothing to run here, as in the reference; the ML
+    declarations raise :class:`Unsupported`."""
+    db.prefixes.update(cq.prefixes)
     for name, present in (
-        ("INSERT", cq.insert is not None),
-        ("DELETE", cq.delete is not None),
-        ("REGISTER", cq.register is not None),
-        ("RULE", cq.rules),
         ("MODEL", cq.models),
         ("NEURAL RELATION", cq.neural_relations),
         ("TRAIN", cq.train_decls),
         ("ML.PREDICT", cq.ml_predict is not None),
-        ("RETRIEVE", cq.retrieve is not None),
     ):
         if present:
             raise Unsupported(name)
-    db.prefixes.update(cq.prefixes)
-    if cq.select is None:
-        return []
-    return execute_select(db, cq.select)
+    from kolibrie_tpu_torch.reasoner import rule_runtime
 
+    for rule in cq.rules:
+        rule_runtime.process_combined_rule(db, rule)
+    if cq.delete is not None:
+        process_delete_clause(db, cq.delete)
+    if cq.insert is not None:
+        process_insert_clause(db, cq.insert)
+    if cq.select is not None:
+        return execute_select(db, cq.select)
+    return []
+
+
+def execute_query_volcano(sparql: str, db) -> Rows:
+    """Run one SPARQL statement on ``db``'s device and return the SELECT's
+    rows as display strings (the reference's ``execute_query_volcano``)."""
+    db.register_prefixes_from_query(sparql)
+    return execute_combined(db, parse_combined_query(sparql, db.prefixes))
+
+
+def execute_query(sparql: str, db) -> Rows:
+    """The legacy sequential path: the same semantics with the patterns
+    joined in textual order and no cost-based planning (the reference's
+    ``execute_query``)."""
+    db.register_prefixes_from_query(sparql)
+    cq = parse_combined_query(sparql, db.prefixes)
+    if cq.select is None:
+        return execute_combined(db, cq)
+    return execute_select(db, cq.select, use_optimizer=False)

@@ -2,10 +2,12 @@
 + dictionary + parsers + prefixes, with the device mirror on an explicit
 torch device.
 
-Port of ``kolibrie_tpu/query/sparql_database.py``, trimmed to what SPARQL
-SELECT on the device engine reaches: the pure-Python RDF parsers (the C++
-bulk tokenizers are not ported), term encoding/decoding, prefixes, the
-numeric-literal table and the optimizer statistics.
+Port of ``kolibrie_tpu/query/sparql_database.py``, trimmed to what the
+SPARQL statements reach: the pure-Python RDF parsers (the C++ bulk
+tokenizers are not ported), term encoding/decoding, prefixes, the
+numeric-literal table, the optimizer statistics, and the registries that
+``execute_combined`` and RULE definitions read (``rule_map``,
+``neural_relations``, ``probability_seeds``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,12 @@ class SparqlDatabase:
         self.quoted = QuotedTripleStore()
         self.prefixes: Dict[str, str] = dict(DEFAULT_PREFIXES)
         self.udfs: Dict[str, Callable] = {}
+        #: RULE definitions by name (``execute_combined``)
+        self.rule_map: Dict[str, object] = {}
+        #: NEURAL RELATION declarations; empty until the ML slice is ported
+        self.neural_relations: Dict[str, object] = {}
+        #: input probabilities of facts, for the provenance seeds
+        self.probability_seeds: Dict[Tuple[int, int, int], float] = {}
         self._stats = None
         self._stats_version = -1
         self._numeric_cache: Optional[np.ndarray] = None

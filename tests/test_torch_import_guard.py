@@ -45,6 +45,17 @@ rows = port.execute_query_volcano(
     "SELECT ?x ?y WHERE { ?x <http://e/knows> ?y } ORDER BY DESC(?y) LIMIT 1", db
 )
 assert rows == [["http://e/b", "http://e/c"]], rows
+rows = port.execute_query(
+    "SELECT ?x ?y ?g WHERE { ?x <http://e/knows> ?y . ?z <http://e/age> ?g }", db
+)
+assert rows == [["http://e/a", "http://e/b", "30"], ["http://e/b", "http://e/c", "30"]], rows
+assert port.execute_query_volcano(
+    "INSERT DATA { <http://e/c> <http://e/knows> <http://e/d> }", db) == []
+assert port.execute_query_volcano(
+    "RULE :Reach :- CONSTRUCT { ?x <http://e/reach> ?z . } "
+    "WHERE { ?x <http://e/knows> ?y . ?y <http://e/knows> ?z . }", db) == []
+rows = port.execute_query_volcano("SELECT ?x ?z WHERE { ?x <http://e/reach> ?z }", db)
+assert rows == [["http://e/a", "http://e/c"], ["http://e/b", "http://e/d"]], rows
 r = port.Reasoner(device="cpu")
 for i in range(6):
     r.add_abox_triple(f"n{i}", "next", f"n{i + 1}")
