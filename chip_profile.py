@@ -34,8 +34,17 @@ the one readback), the textual-order join (``_naive_eval``) and the host
 aggregate; and the statements (RULE, DELETE … WHERE, INSERT DATA, DELETE
 DATA) on a database of their own: wall, closure, compaction and WHERE ms,
 then a run under ``torch.profiler``.
+Then phase 9: 9a's three tagged closures and 9b's ``RULE … PROB``
+(independent), each cold, then warm with a timer around every device round
+(host ms per round, and the rest of the wall outside them: seeding, tag
+write-back, RDF-star export; seeding and write-back also timed alone),
+then under ``torch.profiler``; and the device route's threshold
+(``profile_prov_crossover``: 9a's graph at 437-51,860 facts, device
+closure against host loop).
 Prints one JSON object per query, one for the closure, one for the RSP
-stream and one per statement, the card's name and power limit, and last
+stream, one per statement, one per phase-9 run and one per crossover
+point, the card's name and
+power limit, and last
 one JSON object with every breakdown.  It checks nothing: ``chip_smoke.py``
 does.
 """
@@ -311,6 +320,140 @@ def profile_rsp(dev) -> dict:
     }
 
 
+def profile_provenance(dev, lubm) -> list:
+    """Phase 9: each of 9a's tagged closures (``chip_smoke.PROV_SEMIRINGS``
+    at ``PROV_FACTS``) and 9b's ``RULE … PROB`` (independent) at LUBM-1000:
+    one cold run, one warm run with a timer around every device dispatch
+    (``device_provenance._prov_round`` / ``_prov_round_addmult``, each
+    ending in its one host read), the tag seeding and the write-back, then
+    a warm run under ``torch.profiler``."""
+    import torch
+
+    from chip_smoke import (
+        PROB_RULE,
+        PROV_FACTS,
+        PROV_SEED,
+        PROV_SEMIRINGS,
+        SURFACE_PREFIXES,
+        prov_reasoner,
+        prov_seeds,
+        prov_tag_store,
+        prov_workload,
+    )
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+
+    work = prov_workload(PROV_FACTS, PROV_SEED)
+    seeds = prov_seeds(lubm, PROV_SEED)
+
+    def closure(name):
+        r, cols = prov_reasoner(dev, work)
+        prov, store = prov_tag_store(name, cols, work)
+        return lambda: r.infer_new_facts_with_provenance(prov, store)
+
+    def rule():
+        db = SparqlDatabase.from_arrays(lubm.dictionary.id_to_str, *lubm.store.columns(),
+                                        device=dev, probability_seeds=seeds)
+        q = SURFACE_PREFIXES + PROB_RULE.format(comb="independent")
+        return lambda: (execute_query_volcano(q, db), len(db))
+
+    out = []
+    for label, make in [(f"9a_{n}", lambda n=n: closure(n)) for n in PROV_SEMIRINGS] + [
+            ("9b_rule_independent", rule)]:
+        make()()  # cold
+        rounds_ms = []
+        saved = (DP._prov_round, DP._prov_round_addmult)
+
+        def timed(fn, into):
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                res = fn(*a, **k)  # a dispatch ends in its host read
+                into.append((time.perf_counter() - t) * 1e3)
+                return res
+            return wrapped
+
+        fn = make()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        steps = (DP._seed_tag_arrays, DP._write_back)
+        seed_ms, write_back_ms = [], []
+        DP._prov_round, DP._prov_round_addmult = (timed(f, rounds_ms) for f in saved)
+        DP._seed_tag_arrays = timed(steps[0], seed_ms)  # ends in its host read
+        DP._write_back = timed(steps[1], write_back_ms)  # reads the tags to the host
+        try:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            DP._prov_round, DP._prov_round_addmult = saved
+            DP._seed_tag_arrays, DP._write_back = steps
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(make())
+        out.append({
+            "provenance": label, "wall_ms": wall_ms, "rounds_ms": rounds_ms,
+            "seed_ms": sum(seed_ms), "write_back_ms": sum(write_back_ms),
+            "outside_rounds_ms": wall_ms - sum(rounds_ms), "caps": DP.LAST_RUN["caps"],
+            "peak_bytes": peak, **prof, "busy_share": prof["device_busy_ms"] / wall_ms,
+        })
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+# 9a's graph at these drawn edges holds 437 / 841 / 1,304 / 1,723 / 2,145 / 5,204 /
+# 10,406 / 20,770 / 51,860 facts
+PROV_CROSSOVER_EDGES = (1_000, 2_000, 3_000, 4_000, 5_000, 12_000, 24_000, 48_000, 120_000)
+
+
+def profile_prov_crossover(dev, repeats: int = 3) -> dict:
+    """Where the device route starts to pay (``device_provenance.
+    AUTO_MIN_FACTS``): 9a's graph (``chip_smoke.prov_workload``) at each of
+    ``PROV_CROSSOVER_EDGES`` drawn edges under each of 9a's semirings, the device
+    closure (``infer_provenance_device``) against the host loop
+    (``infer_with_provenance_host``) on a fresh reasoner and seeded store
+    each, synchronised; after one cold device run, the median of
+    ``repeats`` runs of each."""
+    import statistics
+
+    import torch
+
+    from chip_smoke import PROV_SEED, PROV_SEMIRINGS, prov_reasoner, prov_tag_store, prov_workload
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+    from kolibrie_tpu_torch.reasoner.provenance_seminaive import infer_with_provenance_host
+
+    def on_device(r, prov, store):
+        if DP.infer_provenance_device(r, prov, store) is None:
+            raise AssertionError("the device path declined 9a's program")
+
+    rows = []
+    for n in PROV_CROSSOVER_EDGES:
+        work = prov_workload(n, PROV_SEED)
+        for name in PROV_SEMIRINGS:
+            def run(fn):
+                r, cols = prov_reasoner(dev, work)
+                prov, store = prov_tag_store(name, cols, work)
+                n0 = len(r.facts)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn(r, prov, store)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t) * 1e3, n0, len(r.facts)
+
+            run(on_device)  # cold
+            dev_runs = [run(on_device) for _ in range(repeats)]
+            host_runs = [run(infer_with_provenance_host) for _ in range(repeats)]
+            if {x[1:] for x in dev_runs} != {x[1:] for x in host_runs}:
+                raise AssertionError(f"crossover {n} {name}: fact counts differ")
+            rows.append({
+                "edges": n, "facts": dev_runs[0][1], "closed_facts": dev_runs[0][2],
+                "semiring": name,
+                "device_ms": statistics.median(x[0] for x in dev_runs),
+                "host_ms": statistics.median(x[0] for x in host_runs),
+            })
+            print(json.dumps({"prov_crossover": rows[-1]}), flush=True)
+    return {"auto_min_facts": DP.AUTO_MIN_FACTS, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -366,9 +509,12 @@ def main() -> int:
     statements = profile_statements(dev, lubm)
     for rec in statements:
         print(json.dumps(rec), flush=True)
+    provenance = profile_provenance(dev, lubm)
+    crossover = profile_prov_crossover(dev)
     print(card)
     print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp,
-                      "statements": statements}))
+                      "statements": statements, "provenance": provenance,
+                      "prov_crossover": crossover}))
     return 0
 
 

@@ -103,8 +103,29 @@ result line):
             strategy): rows, counts and the store after the RULE must
             equal.  Per statement: wall, closure and compaction ms, rounds.
             Counters zeroed just before each run and read just after.
+9. provenance — tagged reasoning on the card.  9a: the graph of
+            ``benches/bench_device_provenance.py`` (200,000 ``observes``
+            edges over 50,000 nodes, ``default_rng(7)``, expiries, then
+            probabilities from the same generator) closed under its 2-hop
+            rule through ``Reasoner.infer_new_facts_with_provenance`` under
+            Expiration, MinMax and AddMult, cold then warm: the device route
+            taken, facts and TagStore equal to the port's host loop on the
+            same machine (exact; AddMult within 1e-9 a tag), AddMult's two
+            runs bit-identical with the same dispatches, and the warm run
+            launching the fused filter and the merge path every dispatch
+            (``PROV_LAUNCHES``).  9b: ``RULE … PROB`` (independent, then
+            min) through ``execute_query_volcano`` on databases of their own
+            built from phase 4's LUBM-1000 columns with a seeded probability
+            on every ``memberOf`` and ``subOrganizationOf`` fact: 640,000
+            derived, one tag triple per tagged fact, the device route, and
+            the same facts and tag triples as the CPU twin (host loop).  9c:
+            the reference tests' NAF programs (Boolean, MinMax, AddMult),
+            wmc and sdd PROB rules, backward chaining, repairs and
+            ``to_dot``, equal to the CPU's.  Walls, rounds, derived counts,
+            peak device memory and launches are logged.  Counters are
+            zeroed just before each run and read just after.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7 and 8), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7, 8 and 9), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -1917,6 +1938,458 @@ def run_statements_phase(dev, lubm, universities: int, q2_rows: int) -> dict:
     return card
 
 
+# ------------------------------------------------------- phase 9: provenance
+
+PROV_FACTS = 200_000  # benches/bench_device_provenance.py's default
+PROV_SEED = 7
+PROV_SEMIRINGS = ("expiration", "minmax", "addmult")
+# per dispatch of the 2-hop rule: both plans scan both premises through the
+# fused filter and join once through the merge path
+PROV_LAUNCHES = {"filter_mask": 4, "merge_path_join": 2}
+PROV_ADDMULT_TOL = 1e-9  # per tag, the reference tests' _close_tags tolerance
+PROB_VALUE = "http://kolibrie.tpu/prob#value"
+PROB_RULE = ("RULE :MemberUnivP PROB(combination={comb}) :- CONSTRUCT {{ ?x ub:memberOf ?u . }} "
+             "WHERE {{ ?x ub:memberOf ?d . ?d ub:subOrganizationOf ?u . }}")
+PROB_COMBINATIONS = ("independent", "min")
+
+
+def prov_workload(n: int, seed: int) -> dict:
+    """``benches/bench_device_provenance.py``'s graph drawn from
+    ``default_rng(seed)``: ``n`` ``observes`` edges over ``n // 4`` nodes,
+    each from a node to one 1-2 layers on, expiries in 10,000-1,000,000;
+    then one probability per edge from the same generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n // 4, n, dtype=np.uint32)
+    dst = src + rng.integers(1, 3, n).astype(np.uint32)
+    expiries = rng.integers(10_000, 1_000_000, n)
+    probs = rng.uniform(0.05, 0.95, n)
+    return {"src": src, "dst": dst, "expiries": expiries, "probs": probs}
+
+
+def prov_reasoner(dev, work: dict):
+    """The workload's reasoner on ``dev`` with the bench's dictionary IDs
+    and its 2-hop rule ``?x observes ?y . ?y observes ?z => ?x reaches ?z``,
+    and the fact columns in draw order."""
+    import numpy as np
+
+    from kolibrie_tpu_torch import Reasoner
+
+    r = Reasoner(device=dev)
+    d = r.dictionary
+    obs = d.encode("observes")
+    node_ids = np.array([d.encode(f"v{i}") for i in range(int(work["dst"].max()) + 1)],
+                        dtype=np.uint32)
+    cols = (node_ids[work["src"]], np.full(len(work["src"]), obs, np.uint32),
+            node_ids[work["dst"]])
+    r.facts.add_batch(*cols)
+    r.add_rule(r.rule_from_strings([("?x", "observes", "?y"), ("?y", "observes", "?z")],
+                                   [("?x", "reaches", "?z")]))
+    len(r.facts)  # compact on the host before any clock starts
+    return r, cols
+
+
+def prov_tag_store(name: str, cols, work: dict):
+    """The seeded TagStore: expiries for ``expiration``, the drawn
+    probabilities otherwise (a repeated edge keeps its last draw, as the
+    bench's loop does)."""
+    from kolibrie_tpu_torch.reasoner.provenance import make_provenance
+    from kolibrie_tpu_torch.reasoner.tag_store import TagStore
+
+    prov = make_provenance(name)
+    vals = work["expiries"] if name == "expiration" else work["probs"]
+    keys = zip(*(c.tolist() for c in cols))
+    return prov, TagStore.from_items(prov, zip(keys, vals.tolist()))
+
+
+class DeviceRoute:
+    """Records every ``device_provenance.infer_provenance_device`` call made
+    in its scope (through the reasoner's entry) and whether it accepted
+    the program (not None)."""
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.reasoner import device_provenance as DP
+
+        self.accepted = []
+        self._orig = DP.infer_provenance_device
+
+        def spy(*a, **k):
+            out = self._orig(*a, **k)
+            self.accepted.append(out is not None)
+            return out
+
+        DP.infer_provenance_device = spy
+        return self
+
+    def __exit__(self, *exc):
+        from kolibrie_tpu_torch.reasoner import device_provenance as DP
+
+        DP.infer_provenance_device = self._orig
+        return False
+
+
+def prov_recorders(captured: dict):
+    """Wrappers keeping phase 9's largest fused-filter scan and merge-path
+    call (most slots, then left rows; no readback) as phase 5's inputs."""
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+    saved = (FX.filter_mask, K.merge_path)
+
+    def merge_rec(*a):
+        if (a[6], a[4]) > captured.get("merge_path_join", ((0, 0), None))[0]:
+            captured["merge_path_join"] = ((a[6], a[4]), a)
+        return saved[1](*a)
+
+    def install():
+        FX.filter_mask, K.merge_path = filter_recorder(captured, saved[0]), merge_rec
+
+    def restore():
+        FX.filter_mask, K.merge_path = saved
+
+    return install, restore
+
+
+def prov_launches(on_card: bool, calls) -> dict:
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    if on_card:
+        return {k: v for k, v in {**K.LAUNCHES, **K.ENTRY_LAUNCHES}.items() if v}
+    return dict(calls.counts)
+
+
+def same_tags(want: dict, got: dict, addmult: bool) -> float:
+    """Largest per-tag difference (0.0: equal); raises on other keys or
+    an exact semiring's difference."""
+    if set(want) != set(got):
+        raise AssertionError(f"tag keys differ: {len(want)} vs {len(got)}")
+    if not addmult:
+        if want != got:
+            raise AssertionError("tags differ")
+        return 0.0
+    err = max((abs(v - got[k]) for k, v in want.items()), default=0.0)
+    if not err <= PROV_ADDMULT_TOL:
+        raise AssertionError(f"AddMult tags differ by {err} > {PROV_ADDMULT_TOL}")
+    return err
+
+
+def run_prov_closures(dev, work: dict, captured: dict) -> dict:
+    """9a: the workload under each semiring through
+    ``Reasoner.infer_new_facts_with_provenance`` on ``dev``, cold then warm
+    on fresh reasoners (launch counters zeroed just before each run, read
+    just after), then the port's host loop on the same machine
+    (``infer_with_provenance_host``).  Checks the device
+    route, facts and TagStore against the host loop, AddMult's two device
+    runs bit-identical with the same dispatches, and the warm run's launch
+    floor."""
+    import torch
+
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+    from kolibrie_tpu_torch.reasoner.provenance_seminaive import infer_with_provenance_host
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    install, restore = prov_recorders(captured)
+    out = {}
+    for name in PROV_SEMIRINGS:
+        runs = {}
+        for label in ("cold", "warm"):
+            r, cols = prov_reasoner(dev, work)
+            prov, store = prov_tag_store(name, cols, work)
+            n0 = len(r.facts)
+            K.reset_launches()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+                install()
+            try:
+                with DeviceRoute() as route, KernelCalls() as calls:
+                    sync()
+                    t = time.perf_counter()
+                    r.infer_new_facts_with_provenance(prov, store)
+                    sync()
+                    ms = (time.perf_counter() - t) * 1e3
+            finally:
+                restore()
+            runs[label] = {
+                "derived": len(r.facts) - n0, "ms": ms, "route": route.accepted,
+                "rounds": DP.LAST_RUN["rounds"], "attempts": DP.LAST_RUN["attempts"],
+                "caps": DP.LAST_RUN["caps"], "dispatches": list(DP.LAST_RUN["dispatches"]),
+                "launches": prov_launches(on_card, calls),
+                "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                "tags": dict(store.tags), "facts": r.facts.columns(),
+            }
+            if route.accepted != [True]:
+                raise AssertionError(f"9a {name} {label}: device route {route.accepted}")
+            rec = runs[label]
+            log(f"9a {name} {label}: {n0} facts, {rec['derived']} derived, {ms:.1f} ms, "
+                f"{rec['rounds']} rounds, {rec['attempts']} overflow attempts, caps {rec['caps']}, "
+                f"peak device memory {rec['peak_bytes']} B, launches {rec['launches']}")
+        r, cols = prov_reasoner(dev, work)
+        prov, store = prov_tag_store(name, cols, work)
+        t = time.perf_counter()
+        infer_with_provenance_host(r, prov, store)  # the host loop on the same machine
+        host_ms = (time.perf_counter() - t) * 1e3
+        warm = runs["warm"]
+        import numpy as np
+
+        if not all(np.array_equal(a, b) for a, b in zip(warm["facts"], r.facts.columns())):
+            raise AssertionError(f"9a {name}: facts differ from the host loop")
+        err = same_tags(dict(store.tags), warm["tags"], name == "addmult")
+        if name == "addmult" and (runs["cold"]["tags"] != warm["tags"]
+                                  or runs["cold"]["dispatches"] != warm["dispatches"]):
+            raise AssertionError("9a addmult: two device runs differ")
+        floor = {k: n * len(warm["dispatches"]) for k, n in PROV_LAUNCHES.items()}
+        if any(warm["launches"].get(k, 0) < n for k, n in floor.items()):
+            raise AssertionError(f"9a {name} warm launches {warm['launches']}, floor {floor}")
+        for rec in runs.values():
+            del rec["tags"], rec["facts"]
+        out[name] = {**runs, "host_ms": host_ms, "max_tag_err": err}
+        log(f"9a {name}: facts and TagStore equal the host loop ({host_ms:.1f} ms; largest tag "
+            f"difference {err}){'; two device runs bit-identical' if name == 'addmult' else ''}")
+    return out
+
+
+def prov_seeds(lubm, seed: int) -> dict:
+    """A probability from ``default_rng(seed)`` on every ``ub:memberOf``
+    and ``ub:subOrganizationOf`` fact of the LUBM columns, in store
+    order."""
+    import numpy as np
+
+    from benches.lubm import UB
+
+    s, p, o = lubm.store.columns()
+    ids = [lubm.dictionary.lookup(UB + k) for k in ("memberOf", "subOrganizationOf")]
+    m = np.isin(p, ids)
+    probs = np.random.default_rng(seed).uniform(0.05, 0.95, int(m.sum()))
+    return dict(zip(zip(s[m].tolist(), p[m].tolist(), o[m].tolist()), probs.tolist()))
+
+
+def tag_view(db) -> tuple:
+    """The store split into its facts without the tag triples (sorted
+    columns) and the tag triples as {(s, p, o) of the tagged fact: value
+    literal}: two databases whose tags were written in another order hold
+    other IDs for the quoted triples and literals, the same view."""
+    import numpy as np
+
+    s, p, o = db.store.columns()
+    pv = db.dictionary.lookup(PROB_VALUE)
+    m = p == pv if pv is not None else np.zeros(len(p), bool)
+    q = db.quoted.get
+    dec = db.dictionary.decode
+    tags = {q(int(a)): dec(int(c)) for a, c in zip(s[m].tolist(), o[m].tolist())}
+    return (s[~m], p[~m], o[~m]), tags
+
+
+def run_prob_rules(dev, lubm, seeds: dict, captured: dict, twin: bool = False) -> dict:
+    """9b: ``RULE … PROB`` (``PROB_COMBINATIONS``) through
+    ``execute_query_volcano`` on a database of its own per combination,
+    built from the LUBM columns with ``probability_seeds``; launch counters
+    zeroed just before each run and read just after.  ``twin``: the CPU
+    run, whose closure takes the host loop."""
+    import torch
+
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    install, restore = prov_recorders(captured)
+    out = {}
+    for comb in PROB_COMBINATIONS:
+        db = SparqlDatabase.from_arrays(lubm.dictionary.id_to_str, *lubm.store.columns(),
+                                        device=dev, probability_seeds=seeds)
+        n0 = len(db)
+        K.reset_launches()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            install()
+        try:
+            with DeviceRoute() as route, KernelCalls() as calls:
+                sync()
+                t = time.perf_counter()
+                execute_query_volcano(SURFACE_PREFIXES + PROB_RULE.format(comb=comb), db)
+                len(db)  # the wall ends with the store compacted
+                sync()
+                ms = (time.perf_counter() - t) * 1e3
+        finally:
+            restore()
+        facts, tags = tag_view(db)
+        out[comb] = {
+            "ms": ms, "inserted": len(db) - n0, "tag_triples": len(tags), "route": route.accepted,
+            "rounds": DP.LAST_RUN["rounds"] if route.accepted else None,
+            "attempts": DP.LAST_RUN["attempts"] if route.accepted else None,
+            "caps": DP.LAST_RUN["caps"] if route.accepted else None,
+            "dispatches": len(DP.LAST_RUN["dispatches"]) if route.accepted else None,
+            "launches": prov_launches(on_card, calls),
+            "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+            "facts": facts, "tags": tags,
+        }
+        rec = {k: v for k, v in out[comb].items() if k not in ("facts", "tags")}
+        log(f"9b{' CPU twin' if twin else ''} {comb}: {rec}")
+    return out
+
+
+def check_prob_rules(card: dict, twin: dict, universities: int, n_seeds: int):
+    """9b's checks: each combination derived ``640 * universities`` facts,
+    wrote one tag triple per tagged fact (every seed and every derived
+    fact), took the device route launching the fused filter and the merge
+    path every dispatch (the CPU twin: the host loop), and left the same
+    facts and tag triples as the CPU twin."""
+    import numpy as np
+
+    members = 640 * universities
+    for comb in PROB_COMBINATIONS:
+        c, h = card[comb], twin[comb]
+        if c["tag_triples"] != n_seeds + members or c["inserted"] != members + c["tag_triples"]:
+            raise AssertionError(f"9b {comb}: {c['inserted']} inserted, {c['tag_triples']} tag "
+                                 f"triples; expected {members} facts + {n_seeds + members} tags")
+        if c["route"] != [True] or h["route"] != []:
+            raise AssertionError(f"9b {comb}: device route {c['route']}, twin {h['route']}")
+        if not all(np.array_equal(a, b) for a, b in zip(c["facts"], h["facts"])):
+            raise AssertionError(f"9b {comb}: facts differ from the CPU twin")
+        if c["tags"] != h["tags"]:
+            raise AssertionError(f"9b {comb}: tag triples differ from the CPU twin")
+        floor = {k: n * c["dispatches"] for k, n in PROV_LAUNCHES.items()}
+        if any(c["launches"].get(k, 0) < n for k, n in floor.items()):
+            raise AssertionError(f"9b {comb}: launches {c['launches']}, floor {floor}")
+
+
+def prov_small_programs(dev) -> dict:
+    """9c's programs on ``dev``, each a fresh object per call: the
+    reference tests' NAF programs (``_naf_blocked_builder`` under Boolean
+    and MinMax, the AddMult NAF program), a wmc and an sdd ``RULE … PROB``
+    of a few facts, and backward chaining, repairs and ``to_dot`` on a
+    small reasoner.  Returns every answer in a comparable form."""
+    from kolibrie_tpu_torch import Reasoner, SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.core.terms import Term, TriplePattern
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+    from kolibrie_tpu_torch.reasoner import to_dot
+    from kolibrie_tpu_torch.reasoner.provenance import make_provenance
+    from kolibrie_tpu_torch.reasoner.provenance_seminaive import seed_tag_store
+
+    def naf_blocked(tagged):
+        r = Reasoner(device=dev)
+        add = r.add_tagged_triple if tagged else (lambda s, p, o, _t: r.add_abox_triple(s, p, o))
+        add("a", "p", "b", 0.9)
+        add("c", "p", "d", 0.8)
+        add("b", "broken", "yes", 0.3)
+        r.add_rule(r.rule_from_strings([("?x", "p", "?y")], [("?x", "ok", "?y")],
+                                       negative=[("?y", "broken", "yes")]))
+        return r
+
+    def naf_addmult():
+        r = Reasoner(device=dev)
+        r.add_tagged_triple("a", "p", "b", 0.9)
+        r.add_tagged_triple("b", "p", "c", 0.8)
+        r.add_tagged_triple("c", "broken", "yes", 0.4)
+        for i in range(6):
+            r.add_tagged_triple(f"u{i}", "p", f"v{i % 3}", 0.3 + 0.1 * i)
+        r.add_tagged_triple("v1", "broken", "yes", 0.25)
+        r.add_rule(r.rule_from_strings([("?x", "p", "?y")], [("?x", "ok", "?y")],
+                                       negative=[("?y", "broken", "yes")]))
+        return r
+
+    out = {}
+    for label, build, name in (("naf_boolean", lambda: naf_blocked(False), "boolean"),
+                               ("naf_minmax", lambda: naf_blocked(True), "minmax"),
+                               ("naf_addmult", naf_addmult, "addmult")):
+        r = build()
+        prov = make_provenance(name)
+        store = seed_tag_store(r, prov)
+        accepted = DP.infer_provenance_device(r, prov, store) is not None
+        out[label] = (accepted, r.facts.triples_set(), dict(store.tags),
+                      list(DP.LAST_RUN["dispatches"]))
+    ttl = """@prefix e: <http://e/> .
+e:s e:p1 e:m1 . e:s e:p2 e:m2 . e:m1 e:q e:z . e:m2 e:q e:z . e:t e:p1 e:m2 ."""
+    for comb in ("wmc", "sdd"):
+        db = SparqlDatabase(device=dev)
+        db.parse_turtle(ttl)
+        s, p, o = db.store.columns()
+        db.probability_seeds = {k: 0.3 + 0.1 * i for i, k in enumerate(zip(
+            s.tolist(), p.tolist(), o.tolist()))}
+        execute_query_volcano(
+            f"PREFIX e: <http://e/> RULE :G PROB(combination={comb}) :- CONSTRUCT "
+            "{ ?x e:reach ?z . } WHERE { ?x ?p ?y . ?y e:q ?z . }", db)
+        out[f"prob_{comb}"] = tag_view(db)[1], sorted(
+            (db.decode_term(int(a)), db.decode_term(int(b)), db.decode_term(int(c)))
+            for a, b, c in zip(*db.store.columns()))
+    r = Reasoner(device=dev)
+    for a, b in (("alice", "bob"), ("bob", "carol"), ("carol", "dave")):
+        r.add_abox_triple(a, "parentOf", b)
+    r.add_abox_triple("x", "status", "active")
+    r.add_abox_triple("x", "status", "inactive")
+    r.add_rule(r.rule_from_strings([("?x", "parentOf", "?y")], [("?x", "ancestorOf", "?y")]))
+    r.add_rule(r.rule_from_strings([("?x", "parentOf", "?y"), ("?y", "ancestorOf", "?z")],
+                                   [("?x", "ancestorOf", "?z")]))
+    goal = TriplePattern(Term.variable("a"), Term.constant(r.dictionary.encode("ancestorOf")),
+                         Term.constant(r.dictionary.encode("dave")))
+    out["backward"] = r.backward_chaining(goal)
+    r.add_constraint(r.rule_from_strings(
+        [("?s", "status", "active"), ("?s", "status", "inactive")], []))
+    out["repairs"] = sorted(map(sorted, r.compute_repairs()))
+    out["to_dot"] = to_dot(r)
+    return out
+
+
+def run_prov_small(dev) -> dict:
+    """9c: the small programs on ``dev`` against the CPU: every answer
+    equal (AddMult tags within ``PROV_ADDMULT_TOL``), each NAF program on
+    the device route on both."""
+    import torch
+
+    card, host = prov_small_programs(dev), prov_small_programs(torch.device("cpu"))
+    for key, got in card.items():
+        want = host[key]
+        if key.startswith("naf_"):
+            if not (got[0] and want[0]) or got[1] != want[1] or got[3] != want[3]:
+                raise AssertionError(f"9c {key}: card {got[0]} {got[3]} vs CPU {want[0]} {want[3]}")
+            same_tags(want[2], got[2], key == "naf_addmult")
+        elif got != want:
+            raise AssertionError(f"9c {key}: the card's answer differs from the CPU's")
+    if not card["backward"] or len(card["repairs"]) != 2:
+        raise AssertionError(f"9c: backward {card['backward']}, repairs {card['repairs']}")
+    log(f"9c: NAF programs (Boolean, MinMax, AddMult), PROB wmc/sdd rules, backward chaining "
+        f"({len(card['backward'])} answers), repairs ({len(card['repairs'])}) and to_dot equal "
+        f"the CPU's")
+    return {k: len(v[1]) if k.startswith("naf_") else None for k, v in card.items()}
+
+
+def run_prov_phase(dev, lubm, universities: int) -> dict:
+    """Phase 9 on ``dev``: 9a (the tagged closures at ``PROV_FACTS``), 9b
+    (``RULE … PROB`` at the LUBM columns, against the CPU twin) and 9c
+    (small programs against the CPU).  Returns the runs and the largest
+    kernel inputs phase 5 times."""
+    import torch
+
+    from kolibrie_tpu_torch.reasoner.sdd import make_sdd_manager
+
+    captured = {}
+    t0 = time.perf_counter()
+    closures = run_prov_closures(dev, prov_workload(PROV_FACTS, PROV_SEED), captured)
+    t1 = time.perf_counter()
+    seeds = prov_seeds(lubm, PROV_SEED)
+    card = run_prob_rules(dev, lubm, seeds, captured)
+    t2 = time.perf_counter()
+    twin = run_prob_rules(torch.device("cpu"), lubm, seeds, {}, twin=True)
+    t3 = time.perf_counter()
+    check_prob_rules(card, twin, universities, len(seeds))
+    small = run_prov_small(dev)
+    launches = {}
+    for rec in [c["warm"] for c in closures.values()] + list(card.values()):
+        for k, n in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for rec in list(card.values()) + list(twin.values()):
+        del rec["facts"], rec["tags"]
+    log(f"phase 9: 9a {t1 - t0:.1f} s, 9b card {t2 - t1:.1f} s, 9b CPU twin {t3 - t2:.1f} s, "
+        f"9c {time.perf_counter() - t3:.1f} s; SDD manager {type(make_sdd_manager()).__name__}; "
+        f"warm-run launches {launches}")
+    return {"closures": closures, "rules": card, "twin": twin, "small": small,
+            "launches": launches, "captured": captured}
+
+
 # ------------------------------------------------------- kernel timing
 
 
@@ -2016,7 +2489,7 @@ def load_parent_kernels(root: str):
 
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
-    parent=None,
+    prov: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -2099,6 +2572,15 @@ def kernels_at_main_path_shapes(
     fargs = st["filter_mask"][1]
     line.append(timed_row("filter_mask[statements]", csrc + "filter_mask.cu", pk + "887",
                           l8.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                          check_filter, filter_library(fargs)))
+    # phase 9: its warm runs' launches, at the largest calls of its card runs
+    pc, l9 = prov["captured"], prov["launches"]
+    line.append(timed_row("merge_path_join[provenance]", csrc + "merge_join.cu", pk + "181",
+                          l9.get("merge_path_join", 0), pc["merge_path_join"][1], K.merge_path,
+                          K.merge_path_plain, merge_path_bytes, check_merge_path))
+    fargs = pc["filter_mask"][1]
+    line.append(timed_row("filter_mask[provenance]", csrc + "filter_mask.cu", pk + "887",
+                          l9.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
                           check_filter, filter_library(fargs)))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
@@ -2186,9 +2668,12 @@ def main(argv=None) -> int:
     # ---- 8. the host engine's shapes and the statements beside SELECT
     statements = run_statements_phase(dev, lubm, UNIVERSITIES, EXPECTED_ROWS["q2"])
 
+    # ---- 9. tagged (provenance) reasoning
+    prov = run_prov_phase(dev, lubm, UNIVERSITIES)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
-        main_path, surface, closure, entries, rsp, statements, parent
+        main_path, surface, closure, entries, rsp, statements, prov, parent
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,8 @@ SPARQL SELECT over basic graph patterns and FILTERs runs on the device
 engine (scans over the two-tier sorted store, merge-path joins, FILTER
 masks, the worst-case-optimal join for cyclic patterns), the Datalog
 reasoner's semi-naive fixpoint runs as device rounds (fused triple-pattern
-scans, merge-path premise joins, sort-unique dedup), and the RSP engine
+scans, merge-path premise joins, sort-unique dedup), so does its tagged
+(provenance) fixpoint under the scalar semirings, and the RSP engine
 closes and queries each window firing on the device, with hand-written CUDA
 kernels for the NVIDIA H100.  Every entry point runs on the CUDA card
 unless the caller passes ``device="cpu"``.
@@ -20,6 +21,7 @@ unless the caller passes ``device="cpu"``.
     r.add_abox_triple("a", "next", "b")
     r.add_rule(r.rule_from_strings([...], [...]))
     r.infer_new_facts_semi_naive_parallel()
+    r.infer_new_facts_with_provenance(MinMaxProbability())  # reasoner.provenance
 
     from kolibrie_tpu_torch import RSPBuilder, WindowTriple
     engine = RSPBuilder("REGISTER RSTREAM ...", device="cpu").add_rules(...).build()

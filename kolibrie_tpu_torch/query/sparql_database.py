@@ -160,15 +160,21 @@ class SparqlDatabase:
 
     @classmethod
     def from_arrays(
-        cls, terms, s, p, o, quoted=None, device: DeviceLike = None
+        cls, terms, s, p, o, quoted=None, device: DeviceLike = None, probability_seeds=None
     ) -> "SparqlDatabase":
         """A database holding another database's state: ``terms`` is the
         dictionary's term list in ID order (index 0 the NULL slot, ``None``),
-        ``s``/``p``/``o`` are u32 columns with deletions already applied and
-        ``quoted`` an optional mapping quoted-triple ID -> ``(s, p, o)``.
+        ``s``/``p``/``o`` are u32 columns with deletions already applied,
+        ``quoted`` an optional mapping quoted-triple ID -> ``(s, p, o)`` and
+        ``probability_seeds`` an optional mapping ``(s, p, o)`` -> input
+        probability (the facts ``RULE … PROB`` seeds its tags from).
         Dictionary and quoted IDs, and hence every sort order, match the
         source's."""
         db = cls(device)
+        db.probability_seeds = {
+            (int(a), int(b), int(c)): float(v)
+            for (a, b, c), v in (probability_seeds or {}).items()
+        }
         db.dictionary = Dictionary.from_terms(terms)
         for qid, (qs, qp, qo) in sorted((quoted or {}).items()):
             if db.quoted.intern(int(qs), int(qp), int(qo)) != qid:

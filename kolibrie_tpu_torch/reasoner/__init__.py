@@ -1,11 +1,26 @@
 """Datalog reasoner of the PyTorch port: the fact and rule API, the host
-semi-naive strategies and the device semi-naive fixpoint.
+semi-naive strategies and the device semi-naive fixpoint, provenance
+semirings with the device tagged fixpoint, SDD-based exact inference,
+stratified negation, backward chaining, constraints and repairs,
+hierarchical reasoning and the DOT export.
 
 Port of ``kolibrie_tpu/reasoner/`` (parity: the reference's ``datalog/``
-crate); provenance, repairs, backward chaining and cross-window reasoning
-are later slices.
+crate plus ``shared/src/{provenance,sdd,diff_sdd,tag_store,seed_spec}.rs``);
+cross-window streaming reasoning is a later slice.
 """
 
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner
+from kolibrie_tpu_torch.reasoner.hierarchy import (
+    HierarchicalRule,
+    ReasoningHierarchy,
+    ReasoningLevel,
+)
+from kolibrie_tpu_torch.reasoner.to_dot import to_dot
 
-__all__ = ["Reasoner"]
+__all__ = [
+    "Reasoner",
+    "ReasoningHierarchy",
+    "ReasoningLevel",
+    "HierarchicalRule",
+    "to_dot",
+]

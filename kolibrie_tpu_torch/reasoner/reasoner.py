@@ -3,15 +3,15 @@
 Port of ``kolibrie_tpu/reasoner/reasoner.py`` (parity:
 ``datalog/src/reasoning.rs:33-186`` and
 ``datalog/src/reasoning/materialisation/``).  The fact and rule API and the
-forward fixpoints are here; the device fixpoint runs on ``device``, the CUDA
-card unless the caller passes another.  Provenance, repairs, backward
-chaining and constraints are later slices of the port and raise
-``NotImplementedError``.
+forward fixpoints, the tagged (provenance) fixpoint, constraints and
+repairs, backward chaining and the RDF-star tag export are here; the
+device fixpoints run on ``device``, the CUDA card unless the caller passes
+another.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +26,9 @@ from kolibrie_tpu_torch.core.terms import Term, TriplePattern
 from kolibrie_tpu_torch.core.triple import Triple
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(f"{name} is not ported to kolibrie_tpu_torch yet")
-
-
 class Reasoner:
-    """Knowledge graph with forward inference.
+    """Knowledge graph with forward (plain and tagged) and backward
+    inference, constraints and repairs.
 
     ``device`` is where the device fixpoint runs: the CUDA card unless the
     caller passes another (``device="cpu"`` in the tests)."""
@@ -45,19 +42,32 @@ class Reasoner:
         self.facts = ColumnarTripleStore(self.device)
         self.rules: List[Rule] = []
         self.rule_index = RuleIndex()
+        self.constraints: List[Rule] = []
         self.probability_seeds: Dict[Tuple[int, int, int], float] = {}
         self._numeric_cache: Dict[int, Optional[float]] = {}
 
     @classmethod
     def from_arrays(
-        cls, terms, s, p, o, quoted=None, device: DeviceLike = None
+        cls,
+        terms,
+        s,
+        p,
+        o,
+        quoted=None,
+        device: DeviceLike = None,
+        probability_seeds=None,
     ) -> "Reasoner":
         """A reasoner holding another's state: ``terms`` is the dictionary's
         term list in ID order (index 0 the NULL slot, ``None``), ``s``/``p``/
-        ``o`` are the u32 fact columns and ``quoted`` an optional mapping
-        quoted-triple ID -> ``(s, p, o)``.  Every ID keeps its value.  Rules
-        are not carried: add them with :meth:`add_rule`."""
+        ``o`` are the u32 fact columns, ``quoted`` an optional mapping
+        quoted-triple ID -> ``(s, p, o)`` and ``probability_seeds`` an
+        optional mapping ``(s, p, o)`` -> input probability.  Every ID keeps
+        its value.  Rules are not carried: add them with :meth:`add_rule`."""
         r = cls(Dictionary.from_terms(terms), device=device)
+        r.probability_seeds = {
+            (int(a), int(b), int(c)): float(v)
+            for (a, b, c), v in (probability_seeds or {}).items()
+        }
         for qid, (qs, qp, qo) in sorted((quoted or {}).items()):
             if r.quoted.intern(int(qs), int(qp), int(qo)) != qid:
                 raise ValueError(f"quoted-triple ID {qid:#x} is not dense")
@@ -193,30 +203,100 @@ class Reasoner:
         return infer_semi_naive_device(self)
 
     def infer_new_facts_with_repairs(self) -> int:
-        _not_ported("Reasoner.infer_new_facts_with_repairs")
+        from kolibrie_tpu_torch.reasoner.repairs import infer_semi_naive_with_repairs
+
+        return infer_semi_naive_with_repairs(self)
 
     def infer_new_facts_with_provenance(self, provenance, tag_store=None):
-        _not_ported("Reasoner.infer_new_facts_with_provenance")
+        """Tagged semi-naive closure under ``provenance``; returns the
+        TagStore.  The scalar semirings run on :attr:`device` when it is
+        the CUDA card and the store holds ``AUTO_MIN_FACTS`` facts
+        (:mod:`kolibrie_tpu_torch.reasoner.device_provenance`)."""
+        from kolibrie_tpu_torch.reasoner.provenance_seminaive import (
+            infer_with_provenance,
+        )
+
+        return infer_with_provenance(self, provenance, tag_store)
 
     def backward_chaining(self, pattern: TriplePattern, max_depth: int = 10):
-        _not_ported("Reasoner.backward_chaining")
+        from kolibrie_tpu_torch.reasoner.backward import backward_chaining
+
+        return backward_chaining(self, pattern, max_depth)
 
     # ---------------------------------------------------------- constraints
 
     def add_constraint(self, constraint: Rule) -> None:
-        _not_ported("Reasoner.add_constraint")
+        self.constraints.append(constraint)
 
-    def violates_constraints(self, facts=None) -> bool:
-        _not_ported("Reasoner.violates_constraints")
+    def violates_constraints(self, facts: Optional[Set[Tuple[int, int, int]]] = None) -> bool:
+        from kolibrie_tpu_torch.reasoner.strategies import rule_body_matches
 
-    def compute_repairs(self):
-        _not_ported("Reasoner.compute_repairs")
+        store = self._store_from(facts) if facts is not None else self.facts
+        for c in self.constraints:
+            if rule_body_matches(self, c, store):
+                return True
+        return False
 
-    def query_with_repairs(self, subject=None, predicate=None, object=None):
-        _not_ported("Reasoner.query_with_repairs")
+    def _store_from(self, facts: Set[Tuple[int, int, int]]) -> ColumnarTripleStore:
+        st = ColumnarTripleStore(self.device)
+        if facts:
+            arr = np.asarray(sorted(facts), dtype=np.uint32)
+            st.add_batch(arr[:, 0], arr[:, 1], arr[:, 2])
+        return st
+
+    def compute_repairs(self) -> List[Set[Tuple[int, int, int]]]:
+        """Maximal consistent subsets (reasoning.rs:137-186): BFS over fact
+        removals, keeping subset-maximal consistent sets."""
+        base = self.facts.triples_set()
+        repairs: List[Set[Tuple[int, int, int]]] = []
+        queue = [frozenset(base)]
+        seen: Set[frozenset] = set()
+        while queue:
+            current = queue.pop()
+            if current in seen:
+                continue
+            seen.add(current)
+            if not self.violates_constraints(set(current)):
+                if not any(r > set(current) for r in repairs):
+                    repairs = [r for r in repairs if not (set(current) > r)]
+                    repairs.append(set(current))
+            else:
+                for fact in current:
+                    queue.append(current - {fact})
+        return repairs
+
+    def query_with_repairs(
+        self,
+        subject: Optional[str] = None,
+        predicate: Optional[str] = None,
+        object: Optional[str] = None,
+    ) -> List[Triple]:
+        """IAR semantics: answers present in every repair (repairs.rs:10-43)."""
+        repairs = self.compute_repairs()
+        if not repairs:
+            return []
+        answers = self.query_abox(subject, predicate, object)
+        out = []
+        for t in answers:
+            if all(tuple(t) in r for r in repairs):
+                out.append(t)
+        return out
+
+    # ------------------------------------------------------------- tag I/O
 
     def materialize_tags_as_rdf_star(self, tag_store, db=None) -> int:
-        _not_ported("Reasoner.materialize_tags_as_rdf_star")
+        """Insert ``<< s p o >> prob:value "p"`` facts (reasoning.rs:84-93)."""
+
+        class _Shim:
+            pass
+
+        shim = _Shim()
+        shim.dictionary = self.dictionary
+        shim.quoted = self.quoted
+        triples = tag_store.encode_as_rdf_star(db or shim)
+        for t in triples:
+            self.facts.add_triple(t)
+        return len(triples)
 
     # --------------------------------------------------------------- misc
 
@@ -246,6 +326,7 @@ class Reasoner:
         r.rules = list(self.rules)
         for rule in r.rules:
             r.rule_index.add_rule(rule)
+        r.constraints = list(self.constraints)
         r.probability_seeds = dict(self.probability_seeds)
         return r
 

@@ -2,14 +2,18 @@
 
 Port of ``kolibrie_tpu/reasoner/rule_runtime.py`` (parity:
 ``kolibrie/src/parser.rs`` ``convert_combined_rule`` :2256-2436 and
-``process_rule_definition`` :2439-2734) without the provenance semirings
-and ML: a parsed :class:`CombinedRule` becomes an ID-space datalog rule,
-its closure over the database's triples runs through
-:meth:`Reasoner.infer_new_facts_semi_naive_parallel` (the device fixpoint
-from 50,000 facts, the host strategy below that or for a rule set the
-device lowering declines), and the R2S operator's facts are written back
-with one batch.  A rule with ``PROB(...)`` raises ``NotImplementedError``
-(ROADMAP A3); one with ``ML.PREDICT`` raises ``Unsupported`` (A5).
+``process_rule_definition`` :2439-2734) without ML: a parsed
+:class:`CombinedRule` becomes an ID-space datalog rule over a reasoner
+holding the database's triples and probability seeds.  A classical rule's
+closure runs through :meth:`Reasoner.infer_new_facts_semi_naive_parallel`
+(the device fixpoint from 50,000 facts, the host strategy below that or
+for a rule set the device lowering declines); a rule with ``PROB(...)``
+runs the selected provenance semiring through
+:func:`infer_with_provenance` (the device tagged fixpoint on the card for
+the scalar semirings) and writes its tags into the database as
+``<< s p o >> prob:value`` triples, with proof explanations for ``wmc`` /
+``sdd``.  The R2S operator's facts are written back with one batch.  A
+rule with ``ML.PREDICT`` raises ``Unsupported`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from kolibrie_tpu_torch.core.store import _member_mask, _pack2
 from kolibrie_tpu_torch.core.terms import Term, TriplePattern
 from kolibrie_tpu_torch.core.triple import Triple
 from kolibrie_tpu_torch.query import ast as A
+from kolibrie_tpu_torch.reasoner.provenance import make_provenance
+from kolibrie_tpu_torch.reasoner.provenance_seminaive import infer_with_provenance
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner
 
 
@@ -105,11 +111,6 @@ def process_combined_rule(db, rule: A.CombinedRule) -> Tuple[Rule, List[Triple]]
     triples under the rule, and the R2S operator's facts written to the
     store.  Returns the rule and the emitted facts (SPO order; the
     reference's order is its set difference's, and the store is a set)."""
-    if rule.prob is not None:
-        raise NotImplementedError(
-            "RULE with PROB(...) needs the provenance semirings, which are not "
-            "ported to kolibrie_tpu_torch yet (ROADMAP A3)"
-        )
     if rule.ml_predict is not None:
         from kolibrie_tpu_torch.optimizer.device_engine import Unsupported
 
@@ -119,7 +120,20 @@ def process_combined_rule(db, rule: A.CombinedRule) -> Tuple[Rule, List[Triple]]
     db.rule_map[rule.name] = dynamic_rule
     before = kg.facts.columns()
     kg.add_rule(dynamic_rule)
-    kg.infer_new_facts_semi_naive_parallel()
+    if rule.prob is not None:
+        prov = make_provenance(rule.prob.combination, rule.prob.k)
+        tag_store = infer_with_provenance(kg, prov)
+        # materialize << s p o >> prob:value tags into the database, with
+        # the proof explanations for the proof-set semirings
+        star: List[Triple] = []
+        if rule.prob.combination in ("wmc", "sdd"):
+            for (s, p, o), _tag in tag_store.items():
+                star.extend(tag_store.explain_proofs(db, Triple(s, p, o)))
+        star.extend(tag_store.encode_as_rdf_star(db))
+        if star:
+            db.store.add_batch(*np.asarray(star, dtype=np.uint32).T)
+    else:
+        kg.infer_new_facts_semi_naive_parallel()
     inferred = _new_rows(kg.facts.columns(), before)
     # R2S at definition time: RSTREAM (the default) and ISTREAM emit every
     # inferred fact (nothing was emitted before); DSTREAM emits nothing

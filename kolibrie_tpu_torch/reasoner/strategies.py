@@ -358,3 +358,12 @@ def infer_semi_naive(reasoner) -> int:
         total += added
         delta = (s, p, o)
     return total
+
+
+def rule_body_matches(reasoner, rule: Rule, store: ColumnarTripleStore) -> bool:
+    """True if the rule body has at least one satisfying binding (used for
+    constraint violation checks)."""
+    if not rule.premise:
+        return False
+    table = eval_rule_body(reasoner, rule, store, delta=None)
+    return table_len(table) > 0

@@ -220,12 +220,49 @@ def test_still_unsupported_shapes_raise(employees, q, construct):
         port.execute_query_volcano(PREFIXES + q, tdb)
 
 
-def test_prob_rule_raises(employees):
-    _ref, tdb = employees
-    with pytest.raises(NotImplementedError, match="A3"):
-        port.execute_query_volcano(
-            PREFIXES + "RULE :R PROB(combination=min, threshold=0.5) :- CONSTRUCT "
-            "{ ?a ex:k2 ?c . } WHERE { ?a ex:knows ?b . ?b ex:knows ?c . }", tdb)
+def test_prob_rule_raises(employees, monkeypatch):
+    """RULE … PROB through ``execute_query_volcano``, formerly a pinned
+    raise, on a fresh copy of the employee data with a probability seed on
+    every ``knows`` fact: the port's closure runs the DEVICE tagged
+    fixpoint (on torch's CPU, the kernels' plain versions), the reference
+    its host loop.  Derived facts equal; the ``prob:value`` tag triples
+    equal exactly for min and within 1e-9 for independent (noisy-OR)."""
+    from kolibrie_tpu_torch.reasoner import device_provenance as tdp
+    from kolibrie_tpu_torch.reasoner import rule_runtime as port_rules
+    from kolibrie_tpu_torch.reasoner.provenance_seminaive import seed_tag_store
+
+    routed = []
+
+    def on_device(kg, prov):
+        store = seed_tag_store(kg, prov)
+        routed.append(tdp.infer_provenance_device(kg, prov, store) is not None)
+        return store
+
+    monkeypatch.setattr(port_rules, "infer_with_provenance", on_device)
+    value = "http://kolibrie.tpu/prob#value"
+    for comb in ("min", "independent"):
+        ref, tdb = ntriples_pair(employee_lines())
+        knows = ref.dictionary.encode("http://example.org/knows")
+        s, p, o = ref.store.columns()
+        for i, (a, b, c) in enumerate(zip(s.tolist(), p.tolist(), o.tolist())):
+            if b == knows:
+                ref.probability_seeds[(a, b, c)] = 0.3 + 0.6 * ((i * 37) % 101) / 101
+        tdb.probability_seeds = dict(ref.probability_seeds)
+        q = PREFIXES + (f"RULE :R PROB(combination={comb}, threshold=0.5) :- CONSTRUCT "
+                        "{ ?a ex:k2 ?c . } WHERE { ?a ex:knows ?b . ?b ex:knows ?c . }")
+        assert port.execute_query_volcano(q, tdb) == ref_execute(q, ref)
+        for k2 in ("SELECT ?a ?c WHERE { ?a ex:k2 ?c }",
+                   "SELECT ?a ?b WHERE { ?a ex:knows ?b }"):
+            assert rows(port.execute_query_volcano, tdb, PREFIXES + k2) == rows(
+                ref_execute, ref, PREFIXES + k2)
+        star = PREFIXES + f"SELECT ?a ?c ?v WHERE {{ << ?a ex:k2 ?c >> <{value}> ?v }}"
+        want = {(a, c): float(v) for a, c, v in ref_execute(star, ref)}
+        got = {(a, c): float(v)
+               for a, c, v in port.execute_query_volcano(star, tdb)}
+        assert want and set(got) == set(want)
+        for k, v in want.items():
+            assert abs(got[k] - v) <= (1e-9 if comb == "independent" else 0.0), (comb, k)
+    assert routed == [True, True]
 
 
 def test_fuzz_matches_reference():

@@ -80,6 +80,31 @@ for ts in range(1, 6):
     engine.add_to_stream("http://e/s", port.WindowTriple(
         f"<http://e/p{ts}>", "<http://e/knows>", f"<http://e/p{ts + 1}>"), ts)
 assert out and engine.r2r._device_ok and not engine.dead_letters, out
+import kolibrie_tpu_torch.native
+import kolibrie_tpu_torch.native.sdd_native
+from kolibrie_tpu_torch.reasoner import (
+    ReasoningHierarchy, backward, device_provenance, diff_sdd, hierarchy, provenance,
+    provenance_seminaive, repairs, sdd, sdd_seed, seed_spec, tag_store, to_dot,
+)
+t = port.Reasoner(device="cpu")
+for i in range(6):
+    t.add_tagged_triple(f"n{i}", "next", f"n{i + 1}", 0.9 - 0.1 * i)
+t.add_rule(t.rule_from_strings(
+    [("?x", "next", "?y"), ("?y", "next", "?z")], [("?x", "next", "?z")]))
+for name in ("minmax", "addmult"):
+    tt = t.clone()
+    prov = provenance.make_provenance(name)
+    store = provenance_seminaive.seed_tag_store(tt, prov)
+    assert device_provenance.infer_provenance_device(tt, prov, store) == {}
+    assert len(store) == 21, len(store)
+assert len(t.clone().infer_new_facts_with_provenance(sdd.SddProvenance())) == 21
+db.probability_seeds = {k: 0.5 for k in db.store.triples_set()}
+assert port.execute_query_volcano(
+    "RULE :P PROB(combination=independent) :- CONSTRUCT { ?x <http://e/r2> ?z . } "
+    "WHERE { ?x <http://e/knows> ?y . ?y <http://e/knows> ?z . }", db) == []
+rows = port.execute_query_volcano(
+    "SELECT ?x ?v WHERE { << ?x <http://e/r2> ?z >> <http://kolibrie.tpu/prob#value> ?v }", db)
+assert sorted(rows) == [["http://e/a", "0.25"], ["http://e/b", "0.25"]], rows
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -105,6 +130,12 @@ except RuntimeError as e:
     assert "CUDA" in str(e)
 else:
     raise AssertionError("an RSP engine without a device and no CUDA card must raise")
+try:
+    ReasoningHierarchy()
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("a hierarchy without a device and no CUDA card must raise")
 print("guard-ok")
 """
 
@@ -141,7 +172,7 @@ def _imports(path: Path):
 def test_no_source_of_the_port_names_jax_or_the_jax_package():
     pkg = REPO / "kolibrie_tpu_torch"
     walked = {f.parent.name for f in pkg.rglob("*.py")}
-    assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops"} <= walked, walked
+    assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops", "native"} <= walked, walked
     files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "chip_profile.py",

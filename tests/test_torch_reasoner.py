@@ -475,12 +475,27 @@ def test_parallel_strategy_routes_by_size(monkeypatch):
 
 
 def test_unported_surfaces_raise():
-    r = Reasoner(device="cpu")
-    for call in (
-        lambda: r.infer_new_facts_with_provenance(None),
-        lambda: r.infer_new_facts_with_repairs(),
-        lambda: r.backward_chaining(None),
-        lambda: r.add_constraint(None),
-    ):
-        with pytest.raises(NotImplementedError):
-            call()
+    """The surfaces that raised before the provenance slice — tagged
+    closure, repair-guarded closure, backward chaining, constraints — now
+    answer as the JAX package does on the same reasoner."""
+    from kolibrie_tpu.reasoner.provenance import MinMaxProbability as JMinMax
+    from kolibrie_tpu_torch.reasoner.provenance import MinMaxProbability
+
+    jr = _chain(6)
+    jr.probability_seeds = {k: 0.5 + 0.05 * i for i, k in enumerate(sorted(jr.facts.triples_set()))}
+    pr = Reasoner.from_arrays(jr.dictionary.id_to_str, *jr.facts.columns(), device="cpu",
+                              probability_seeds=jr.probability_seeds)
+    for r in jr.rules:
+        pr.add_rule(port_rule(r))
+    jb, pb = jr.clone(), pr.clone()
+    assert dict(pr.infer_new_facts_with_provenance(MinMaxProbability()).tags) == dict(
+        jr.infer_new_facts_with_provenance(JMinMax()).tags)
+    goal = TriplePattern(Term.variable("a"), Term.constant(jr.dictionary.encode("next")),
+                         Term.constant(jr.dictionary.encode("n3")))
+    assert pb.backward_chaining(port_pattern(goal)) == jb.backward_chaining(goal)
+    c = jr.rule_from_strings([("?x", "next", "?y"), ("?y", "next", "?x")], [])
+    jb.add_constraint(c)
+    pb.add_constraint(port_rule(c))
+    assert pb.violates_constraints() == jb.violates_constraints()
+    assert pb.infer_new_facts_with_repairs() == jb.infer_new_facts_with_repairs()
+    assert pb.facts.triples_set() == jb.facts.triples_set()

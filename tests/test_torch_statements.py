@@ -1,7 +1,7 @@
 """The statements beside SELECT on the PyTorch port against the JAX package:
 INSERT DATA, DELETE DATA, DELETE … WHERE, RULE definitions (filters, NOT
-blocks, each R2S stream type), the ML declarations and PROB rules that
-still raise, and the package's exports.
+blocks, each R2S stream type), RULE … PROB with its tag triples, the ML
+declarations that still raise, and the package's exports.
 
 Both packages hold the same database (the port's ``from_arrays`` takes the
 reference's dictionary, quoted table and columns, so every ID matches), run
@@ -212,13 +212,32 @@ def test_rule_filter_the_fixpoint_declines_takes_the_host_strategy(monkeypatch):
 
 
 def test_rule_with_prob_raises():
-    _ref, tdb = pair()
-    q = EX + ("RULE :T PROB(combination=min, threshold=0.5) :- CONSTRUCT { ?x ex:fof ?z . } "
-              "WHERE { ?x ex:knows ?y . ?y ex:knows ?z . }")
-    before = decoded(tdb)
-    with pytest.raises(NotImplementedError, match="A3"):
-        port.execute_query_volcano(q, tdb)
-    assert decoded(tdb) == before
+    """RULE … PROB, formerly a pinned raise: each combination closes the
+    rule under its semiring over the probability seeds (the host loop on
+    the CPU, as the reference off the TPU) and writes the derived facts and
+    the ``<< s p o >> prob:value`` tag triples (plus proof explanations for
+    wmc / sdd); the port's store and answers equal the reference's."""
+    for comb in ("min", "independent", "boolean", "wmc", "sdd", "topk"):
+        ref, tdb = pair()
+        enc = ref.dictionary.encode
+        knows = enc("http://ex.org/knows")
+        s, p, o = ref.store.columns()
+        for i, (a, b, c) in enumerate(zip(s.tolist(), p.tolist(), o.tolist())):
+            if b == knows:
+                ref.probability_seeds[(a, b, c)] = 0.5 + 0.07 * i
+        tdb.probability_seeds = dict(ref.probability_seeds)
+        q = EX + (f"RULE :T PROB(combination={comb}, threshold=0.5) :- CONSTRUCT "
+                  "{ ?x ex:fof ?z . } WHERE { ?x ex:knows ?y . ?y ex:knows ?z . }")
+        want = ref_execute(q, ref)
+        assert port.execute_query_volcano(q, tdb) == want, comb
+        assert_same_store(ref, tdb)
+        assert_same_answers(ref, tdb)
+        star = EX + ("SELECT ?x ?z ?v WHERE { << ?x ex:fof ?z >> "
+                     "<http://kolibrie.tpu/prob#value> ?v }")
+        rows = ref_execute(star, ref)
+        assert port.execute_query_volcano(star, tdb) == rows, comb
+        # topk reads k from the threshold: k = 0 keeps no proof, no tag
+        assert bool(rows) == (comb != "topk"), comb
 
 
 @pytest.mark.parametrize(
