@@ -41,9 +41,18 @@ write-back, RDF-star export; seeding and write-back also timed alone),
 then under ``torch.profiler``; and the device route's threshold
 (``profile_prov_crossover``: 9a's graph at 437-51,860 facts, device
 closure against host loop).
+Then phase 10 (``profile_cross_window``): 10a's four update ratios (the
+naive wall; the incremental wall split into the tagged fixpoint's
+dispatches, its seeding, its write-back and the rest; one run under
+``torch.profiler``) and 10b's incremental engine per cycle, one warm cycle
+profiled; the AUTO threshold's sweep (``profile_churn_sweep``: naive
+against incremental at update ratios 1-50%); and phase 11 (``profile_load``:
+serialize, load, upload, queries, checkpoint, restore, round trips, peak
+device memory).
 Prints one JSON object per query, one for the closure, one for the RSP
-stream, one per statement, one per phase-9 run and one per crossover
-point, the card's name and
+stream, one per statement, one per phase-9 run, one per crossover
+point, one per phase-10 point, cycle list and sweep ratio, one for phase
+11, the card's name and
 power limit, and last
 one JSON object with every breakdown.  It checks nothing: ``chip_smoke.py``
 does.
@@ -454,6 +463,191 @@ def profile_prov_crossover(dev, repeats: int = 3) -> dict:
     return {"auto_min_facts": DP.AUTO_MIN_FACTS, "rows": rows}
 
 
+class TaggedTimers:
+    """Host ms inside the tagged fixpoint's dispatches (each ends in its one
+    host read), its seeding and its write-back, accumulated until read."""
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.reasoner import device_provenance as DP
+
+        self.ms = {"rounds_ms": 0.0, "seed_ms": 0.0, "write_back_ms": 0.0, "dispatches": 0}
+        self._saved = (DP._prov_round, DP._prov_round_addmult, DP._seed_tag_arrays,
+                       DP._write_back)
+
+        def timed(fn, key, count=False):
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.ms[key] += (time.perf_counter() - t) * 1e3
+                    self.ms["dispatches"] += count
+            return wrapped
+
+        r, ra, seed, wb = self._saved
+        DP._prov_round, DP._prov_round_addmult = timed(r, "rounds_ms", True), timed(
+            ra, "rounds_ms", True)
+        DP._seed_tag_arrays, DP._write_back = timed(seed, "seed_ms"), timed(wb, "write_back_ms")
+        return self
+
+    def __exit__(self, *exc):
+        from kolibrie_tpu_torch.reasoner import device_provenance as DP
+
+        (DP._prov_round, DP._prov_round_addmult, DP._seed_tag_arrays, DP._write_back) = self._saved
+        return False
+
+    def take(self) -> dict:
+        out = dict(self.ms)
+        for k in out:
+            self.ms[k] = 0.0 if k != "dispatches" else 0
+        return out
+
+
+def cw_setup(dev, n, ratio):
+    """10a's inputs at ``n`` roads and ``ratio`` %: the dictionary, the
+    rules, the SDS and the bench's prior (the ratio-0 SDS at time 0)."""
+    from chip_smoke import CW_PARKING, CW_RULE, CW_TRAFFIC, cw_sds
+    from kolibrie_tpu_torch import Dictionary
+    from kolibrie_tpu_torch.reasoner.cross_window import incremental_sds_plus
+    from kolibrie_tpu_torch.reasoner.n3_parser import parse_n3_rules_for_sds
+
+    d = Dictionary()
+    rules, _ = parse_n3_rules_for_sds(CW_RULE, d, [CW_TRAFFIC, CW_PARKING])
+    prior = incremental_sds_plus(rules, cw_sds(n, 0), {}, d, 0, device=dev)
+    return d, rules, cw_sds(n, ratio), prior
+
+
+def profile_cross_window(dev) -> dict:
+    """Phase 10: 10a at ``CW_ROADS`` and each of ``CW_RATIOS`` — the naive
+    recomputation's wall, then the incremental cycle's wall with the tagged
+    fixpoint's dispatches, seeding and write-back timed and the rest
+    (translation, overlay, carry) outside them, then the incremental cycle
+    under ``torch.profiler``; and 10b's incremental engine over
+    ``CW_TICKS`` ticks, per cycle the same split, one warm cycle (the
+    20th) under ``torch.profiler``."""
+    import torch
+
+    from chip_smoke import CW_RATIOS, CW_ROADS, CW_SEED, CW_TICKS, CW_TIME, cw_engine, cw_stream
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+    from kolibrie_tpu_torch.reasoner.cross_window import incremental_sds_plus, naive_sds_plus
+
+    points = []
+    with TaggedTimers() as timers:
+        for ratio in CW_RATIOS:
+            d, rules, sds, prior = cw_setup(dev, CW_ROADS, ratio)
+            incremental_sds_plus(rules, sds, prior, d, CW_TIME, device=dev)  # cold
+            t = time.perf_counter()
+            naive_sds_plus(rules, sds, d, CW_TIME, device=dev)
+            naive_ms = (time.perf_counter() - t) * 1e3
+            timers.take()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            incremental_sds_plus(rules, sds, prior, d, CW_TIME, device=dev)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            split = timers.take()
+            prof = device_profile(lambda: incremental_sds_plus(rules, sds, prior, d, CW_TIME,
+                                                               device=dev))
+            points.append({"ratio": ratio, "naive_ms": naive_ms, "incremental_ms": wall, **split,
+                           "outside_rounds_ms": wall - split["rounds_ms"],
+                           "rounds": DP.LAST_RUN["rounds"], "caps": DP.LAST_RUN["caps"],
+                           **prof, "busy_share": prof["device_busy_ms"] / wall})
+            print(json.dumps({"cross_window_10a": points[-1]}), flush=True)
+        cycles: list = []
+        engine = cw_engine(dev, "incremental", cycles)
+        timed_cycle = engine._emit_cross_window
+        splits, prof = [], {}
+
+        def cycle(ts):
+            timers.take()
+            if len(cycles) == 19:
+                prof.update(device_profile(lambda: timed_cycle(ts)))
+            else:
+                timed_cycle(ts)
+            splits.append({**timers.take(), "rounds": DP.LAST_RUN["rounds"]})
+
+        engine._emit_cross_window = cycle
+        stream = cw_stream(CW_TICKS, CW_SEED)
+        t = time.perf_counter()
+        for ts, iri, item in stream:
+            engine.add_to_stream(iri, item, ts)
+        engine.process_single_thread_window_results()
+        wall_s = time.perf_counter() - t
+        engine.stop()
+    per_cycle = [{"ts": c["ts"], "mode": c["mode"], "content": c["content"], "rows": len(c["rows"]),
+                  "wall_ms": c["wall_ms"], **s, "outside_rounds_ms": c["wall_ms"] - s["rounds_ms"]}
+                 for c, s in zip(cycles, splits)]
+    out = {"cross_window": "phase10", "points": points,
+           "engine": {"events": len(stream), "wall_s": wall_s, "events_per_s": len(stream) / wall_s,
+                      "cycles": per_cycle, "profiled_cycle": 19, **prof,
+                      "busy_share": prof.get("device_busy_ms", 0.0) / per_cycle[19]["wall_ms"]}}
+    print(json.dumps({"cross_window_10b": out["engine"]}), flush=True)
+    return out
+
+
+# the AUTO threshold's sweep: update ratios (%) at 10a's width
+CHURN_RATIOS = (1, 2, 5, 10, 20, 50)
+
+
+def profile_churn_sweep(dev, repeats: int = 5) -> dict:
+    """Where incremental SDS+ stops paying (``rsp/engine.py::
+    _AUTO_MAX_CHURN``): 10a's SDS at ``CW_ROADS`` roads and each of
+    ``CHURN_RATIOS``, ``naive_sds_plus`` against ``incremental_sds_plus``
+    from the bench's prior; after one cold run of each, the median of
+    ``repeats`` synchronised runs."""
+    import statistics
+
+    import torch
+
+    from chip_smoke import CW_ROADS, CW_TIME
+    from kolibrie_tpu_torch.reasoner.cross_window import incremental_sds_plus, naive_sds_plus
+
+    rows = []
+    for ratio in CHURN_RATIOS:
+        d, rules, sds, prior = cw_setup(dev, CW_ROADS, ratio)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+
+        def naive():
+            naive_sds_plus(rules, sds, d, CW_TIME, device=dev)
+
+        def inc():
+            incremental_sds_plus(rules, sds, prior, d, CW_TIME, device=dev)
+
+        naive(), inc()  # cold
+        n_ms = statistics.median(timed(naive) for _ in range(repeats))
+        i_ms = statistics.median(timed(inc) for _ in range(repeats))
+        rows.append({"ratio": ratio, "naive_ms": n_ms, "incremental_ms": i_ms,
+                     "speedup": n_ms / i_ms})
+        print(json.dumps({"churn_sweep": rows[-1]}), flush=True)
+    from kolibrie_tpu_torch.rsp import engine as E
+
+    return {"auto_max_churn": E._AUTO_MAX_CHURN, "rows": rows}
+
+
+def profile_load(dev, lubm, emp) -> dict:
+    """Phase 11 (``chip_smoke.run_load_phase``) once more, its steps timed
+    there: serialize and write, parse and ingest (``load_file``), upload
+    of the mirror, Q2 and Q9, checkpoint, restore, clone, union and the
+    employee round trips; peak device memory."""
+    from benches.lubm import LUBM_Q2, LUBM_Q9
+    from chip_smoke import EMPLOYEE_QUERY, run_load_phase
+    from kolibrie_tpu_torch import execute_query_volcano
+
+    rows = {"q2": execute_query_volcano(LUBM_Q2, lubm), "q9": execute_query_volcano(LUBM_Q9, lubm),
+            "employee": execute_query_volcano(EMPLOYEE_QUERY, emp)}
+    out = run_load_phase(dev, {"rows": rows, "report": {"queries": {}}}, lubm, emp)
+    rec = {"load": "phase11", "ms": out["ms"], "peak_bytes": out["peak_bytes"],
+           "nt_bytes": out["nt_bytes"], "checkpoint_bytes": out["checkpoint_bytes"]}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -511,10 +705,15 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
     provenance = profile_provenance(dev, lubm)
     crossover = profile_prov_crossover(dev)
+    cross_window = profile_cross_window(dev)
+    churn = profile_churn_sweep(dev)
+    emp = next(db for name, db, _q, _w in queries if name == "employee")
+    load = profile_load(dev, lubm, emp)
     print(card)
     print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp,
                       "statements": statements, "provenance": provenance,
-                      "prov_crossover": crossover}))
+                      "prov_crossover": crossover, "cross_window": cross_window,
+                      "churn_sweep": churn, "load": load}))
     return 0
 
 

@@ -124,8 +124,44 @@ result line):
             ``to_dot``, equal to the CPU's.  Walls, rounds, derived counts,
             peak device memory and launches are logged.  Counters are
             zeroed just before each run and read just after.
+10. cross-window SDS+ and the incremental R2R.  10a: the CityBench point
+            of ``benches/bench_cross_window.py`` at its largest size
+            (50,000 roads' ``avgSpeed``, alpha 60; 12,500 lots' ``nearRoad``
+            and ``occupancy``, alpha 120: 75,000 window triples) at update
+            ratios 1, 10, 50 and 100%: ``naive_sds_plus`` (the host
+            strategy, as in the reference) against ``incremental_sds_plus``
+            from the ratio-0 SDS at time 0, whose closure takes the device
+            tagged fixpoint under Expiration; the RESULT sets equal each
+            other and the port's CPU run, and every incremental closure
+            launches the fused filter and the merge path each dispatch
+            (``CW_LAUNCHES``).  10b: ``RSPBuilder`` with a traffic window
+            ``[RANGE 60 STEP 10]`` and a parking window ``[RANGE 120 STEP
+            10]``, the same join rule (its conclusion in the traffic
+            window, which the query reads), 834 ``avgSpeed`` readings and
+            105 lots a tick over ticks 1-240 (about 50,000 and 25,000 window
+            triples): modes naive, incremental and auto emit the same rows
+            every cycle, the first three full-width cycles equal the CPU's
+            naive run, and an incremental engine checkpointed after tick 180
+            and restored into a fresh engine (given the first one's terms:
+            the blob holds dictionary IDs, as the reference's does)
+            continues with the uninterrupted rows.  10c: phase 7's stream
+            under ``set_r2r_mode("incremental")``: rows and derived counts
+            equal phase 7's device rows firing by firing, every firing on
+            the device tagged fixpoint.  Per cycle: wall, mode, route,
+            launches.
+11. load and checkpoint — phase 4's LUBM-1000 database written with
+            ``to_ntriples`` to a temporary file and ``load_file``-d into a
+            fresh database on the card through the native parser (asserted);
+            Q2 and Q9 return phase 4's rows with phase 4's warm launches of
+            the merge path and both lex probes; ``checkpoint`` then
+            ``from_checkpoint``: Q9's rows again; ``clone`` + INSERT DATA
+            leave the original unchanged; ``union`` with employee-100K
+            answers the employee join; employee-100K round-trips through
+            ``to_turtle`` and through ``to_rdfxml`` + ``parse_rdf``; a
+            ``QueryBuilder`` query over LUBM-1000 equals its SPARQL twin.
+            Each step timed; peak device memory.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7, 8 and 9), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-11), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -1498,8 +1534,9 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
     """Drive ``stream`` through ``RSPBuilder(RSP_QUERY).add_rules(RSP_RULES)
     .set_r2r_mode(mode)`` on ``dev``, recording per firing: the window's
     content size, the wall ms of the whole firing (the window processor),
-    the R2R's maintenance ms and fixpoint ms (device mode; synchronised),
-    the fixpoint's rounds and capacities, the query ms, the derived count,
+    the R2R's maintenance ms and fixpoint ms (device mode; synchronised;
+    in incremental mode the tagged closure's ms and its device route), the
+    fixpoint's rounds and capacities, the query ms, the derived count,
     the emitted rows and the kernel launches.  ``around_firing(k, fn)``, if
     given, runs firing ``k`` (default: ``fn()``).  Launch counters are
     zeroed just before the stream and read just after; the largest inputs
@@ -1510,6 +1547,7 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
     from kolibrie_tpu_torch import RSPBuilder
     from kolibrie_tpu_torch.ops import kernels as K
     from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     firings: list = []
@@ -1535,13 +1573,15 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
 
         return wrapped
 
+    entry = "materialize_incremental" if mode == "incremental" else "materialize"
+
     def counted_materialize():
         derived = materialize()
         firings[-1]["derived"] = len(derived)
         return derived
 
-    materialize = timed("r2r_ms", r2r.materialize)
-    r2r.materialize = counted_materialize
+    materialize = timed("r2r_ms", getattr(r2r, entry))
+    setattr(r2r, entry, counted_materialize)
     r2r.execute_query = timed("query_ms", r2r.execute_query)
     if mode == "device":
         r2r._apply_delta = timed("maintain_ms", r2r._apply_delta)
@@ -1568,11 +1608,19 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
     window.call_back = firing
 
     captured = {}
-    orig = (FX.DeviceFixpoint.infer_padded, FX.filter_mask, K.merge_path)
+    orig = (FX.DeviceFixpoint.infer_padded, FX.filter_mask, K.merge_path,
+            DP.infer_provenance_device)
 
     def infer_rec(self, *a, **k):
         out = timed("fixpoint_ms", orig[0])(self, *a, **k)
         firings[-1]["rounds"], firings[-1]["caps"] = self.last_rounds, vars(out[4])
+        return out
+
+    def tagged_rec(*a, **k):
+        out = timed("fixpoint_ms", orig[3])(*a, **k)
+        rec = firings[-1]
+        rec.setdefault("route", []).append(out is not None)
+        rec["rounds"], rec["caps"] = DP.LAST_RUN["rounds"], DP.LAST_RUN["caps"]
         return out
 
     def merge_rec(*a):
@@ -1583,6 +1631,7 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
 
     FX.DeviceFixpoint.infer_padded, K.merge_path = infer_rec, merge_rec
     FX.filter_mask = filter_recorder(captured, orig[1])
+    DP.infer_provenance_device = tagged_rec
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -1593,7 +1642,8 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
         sync()
         wall_s = time.perf_counter() - t0
     finally:
-        FX.DeviceFixpoint.infer_padded, FX.filter_mask, K.merge_path = orig
+        (FX.DeviceFixpoint.infer_padded, FX.filter_mask, K.merge_path,
+         DP.infer_provenance_device) = orig
         engine.stop()
     launches = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
@@ -1602,7 +1652,7 @@ def run_rsp(dev, mode: str, stream: list, around_firing=None) -> dict:
         log(f"rsp {mode} firing {k}: content {rec['content']}, derived {rec.get('derived')}, "
             f"rows {len(rec['rows'])}, wall {rec['wall_ms']:.1f} ms (r2r {rec.get('r2r_ms', 0):.1f}: "
             f"maintenance {rec.get('maintain_ms', 0):.1f}, fixpoint {rec.get('fixpoint_ms', 0):.1f} "
-            f"in {rec.get('rounds')} rounds, caps {rec.get('caps')}; query "
+            f"in {rec.get('rounds')} rounds, caps {rec.get('caps')}, route {rec.get('route')}; query "
             f"{rec.get('query_ms', 0):.1f}), launches {rec['launches']}")
     log(f"rsp {mode}: {len(stream)} events in {wall_s:.2f} s = {len(stream) / wall_s:.1f} "
         f"events/s, {len(firings)} firings, peak device memory {peak} B, launches {launches}")
@@ -2390,6 +2440,555 @@ def run_prov_phase(dev, lubm, universities: int) -> dict:
             "launches": launches, "captured": captured}
 
 
+# --------------------------------------- cross-window SDS+ and incremental R2R
+
+# 10a: benches/bench_cross_window.py's largest grid point
+CW_ROADS = 50_000  # avgSpeed triples (alpha 60); lots = roads // 4, two triples each (alpha 120)
+CW_RATIOS = (1, 10, 50, 100)
+CW_TIME = 60
+CW_TRAFFIC = "http://traffic/"
+CW_PARKING = "http://parking/"
+CW_RESULT = "http://result/"
+CW_RULE = """@prefix wt: <http://traffic/> .
+@prefix wp: <http://parking/> .
+@prefix wr: <http://result/> .
+{ ?road wt:avgSpeed ?s . ?lot wp:nearRoad ?road . ?lot wp:occupancy ?occ } => { ?road wr:congested <true> }
+"""
+# per incremental closure (the device tagged fixpoint, one dispatch at
+# least): the rule's three premise scans and its two joins
+CW_LAUNCHES = {"filter_mask": 3, "merge_path_join": 2}
+# 10b: the same join rule on the engine, its conclusion routed into the
+# traffic window so that the window query reads what it derived
+CW_TICKS = 240
+CW_SPEED_PER_TICK = 834  # ~50,000 avgSpeed triples in a 60-tick window
+CW_LOTS_PER_TICK = 105  # 2 triples each: ~25,000 in a 120-tick window
+CW_LOTS = CW_ROADS // 4
+CW_CHECKPOINT_TICK = 180
+CW_CPU_FIRINGS = 3  # the CPU run's full-width firings
+CW_SEED = 11
+CW_MODES = ("naive", "incremental", "auto")
+CW_ENGINE_RULE = CW_RULE.replace("wr:congested", "wt:congested")
+CW_ENGINE_QUERY = f"""REGISTER RSTREAM <http://city/congestion> AS SELECT ?road ?c ?lot
+FROM NAMED WINDOW <{CW_TRAFFIC}> ON <http://city/traffic> [RANGE 60 STEP 10]
+FROM NAMED WINDOW <{CW_PARKING}> ON <http://city/parking> [RANGE 120 STEP 10]
+WHERE {{ WINDOW <{CW_TRAFFIC}> {{ ?road <congested> ?c }} WINDOW <{CW_PARKING}> {{ ?lot <nearRoad> ?road }} }}"""
+
+
+def cw_sds(n: int, ratio: int):
+    """``benches/bench_cross_window.py::make_sds`` on the port's ``Sds``:
+    ``n`` roads' ``avgSpeed`` in the traffic window (alpha 60) and ``n // 4``
+    lots' ``nearRoad`` / ``occupancy`` in the parking window (alpha 120);
+    the first ``ratio`` % of each carry event times at or after
+    ``CW_TIME``."""
+    from kolibrie_tpu_torch.reasoner.cross_window import Sds, WindowData, WindowedTriple
+
+    sds = Sds()
+    sds.output_iris.add(CW_RESULT)
+    upd = n * ratio // 100
+    sds.windows[CW_TRAFFIC] = WindowData(60, [
+        WindowedTriple(f"road_{i}", "avgSpeed", str(20 + i % 80),
+                       (CW_TIME + i % 10) if i < upd else 1 + i % 59)
+        for i in range(n)
+    ])
+    lots = max(n // 4, 1)
+    p_upd = lots * ratio // 100
+    parking = []
+    for j in range(lots):
+        et = (CW_TIME + j % 10) if j < p_upd else 1 + j % 119
+        parking.append(WindowedTriple(f"lot_{j}", "nearRoad", f"road_{(j * 4) % max(n, 1)}", et))
+        parking.append(WindowedTriple(f"lot_{j}", "occupancy", str(50 + j % 50), et))
+    sds.windows[CW_PARKING] = WindowData(120, parking)
+    return sds
+
+
+def cw_results(dictionary, buckets) -> set:
+    """The decoded RESULT component of an SDS+ result."""
+    dec = dictionary.decode
+    return {(dec(t.subject), dec(t.predicate), dec(t.object)) for t in buckets.get(CW_RESULT, [])}
+
+
+def run_cw_point(dev, n: int, ratio: int, captured: dict) -> dict:
+    """10a at one update ratio on ``dev``: ``naive_sds_plus`` against
+    ``incremental_sds_plus`` from the ratio-0 SDS maintained at time 0 (the
+    bench's prior), each timed; the incremental closure's device route
+    and launches recorded (counters zeroed just before, read just
+    after)."""
+    import torch
+
+    from kolibrie_tpu_torch import Dictionary
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_provenance as DP
+    from kolibrie_tpu_torch.reasoner.cross_window import (
+        incremental_sds_plus,
+        naive_sds_plus,
+        sds_with_expiry_to_external,
+    )
+    from kolibrie_tpu_torch.reasoner.n3_parser import parse_n3_rules_for_sds
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    d = Dictionary()
+    rules, _ = parse_n3_rules_for_sds(CW_RULE, d, [CW_TRAFFIC, CW_PARKING])
+    sds = cw_sds(n, ratio)
+    t = time.perf_counter()
+    naive = naive_sds_plus(rules, sds, d, CW_TIME, device=dev)
+    naive_ms = (time.perf_counter() - t) * 1e3
+    prior = incremental_sds_plus(rules, cw_sds(n, 0), {}, d, 0, device=dev)
+    install, restore = prov_recorders(captured)
+    K.reset_launches()
+    if on_card:
+        install()
+    try:
+        with DeviceRoute() as route, KernelCalls() as calls:
+            sync()
+            t = time.perf_counter()
+            inc = incremental_sds_plus(rules, sds, prior, d, CW_TIME, device=dev)
+            sync()
+            inc_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        restore()
+    ext = sds_with_expiry_to_external(inc, d, [CW_TRAFFIC, CW_PARKING, CW_RESULT])
+    rec = {
+        "ratio": ratio, "naive_ms": naive_ms, "incremental_ms": inc_ms,
+        "naive": cw_results(d, naive), "incremental": cw_results(d, ext),
+        "route": route.accepted, "rounds": DP.LAST_RUN["rounds"] if route.accepted else None,
+        "dispatches": len(DP.LAST_RUN["dispatches"]) if route.accepted else 0,
+        "launches": prov_launches(on_card, calls),
+    }
+    log(f"10a {dev.type} ratio {ratio}%: naive {naive_ms:.1f} ms, incremental {inc_ms:.1f} ms "
+        f"({len(rec['incremental'])} results, route {route.accepted}, {rec['rounds']} rounds, "
+        f"launches {rec['launches']})")
+    return rec
+
+
+def check_cw_points(card: list, cpu: list, on_card: bool) -> None:
+    """10a's gates: naive and incremental RESULT sets equal, each equal to
+    the CPU run's and not empty; on the card every incremental closure took
+    the device route and launched ``CW_LAUNCHES`` per dispatch."""
+    for c, h in zip(card, cpu):
+        want = h["naive"]
+        if not want or c["naive"] != want or c["incremental"] != want or h["incremental"] != want:
+            raise AssertionError(f"10a ratio {c['ratio']}%: RESULT sets differ "
+                                 f"({len(c['naive'])}, {len(c['incremental'])}, {len(want)})")
+        if on_card:
+            if c["route"] != [True]:
+                raise AssertionError(f"10a ratio {c['ratio']}%: device route {c['route']}")
+            for k, n in CW_LAUNCHES.items():
+                if c["launches"].get(k, 0) < n * c["dispatches"]:
+                    raise AssertionError(f"10a ratio {c['ratio']}%: launches {c['launches']}")
+    log(f"10a: naive and incremental RESULT sets equal each other and the CPU run at "
+        f"{[c['ratio'] for c in card]}%")
+
+
+def cw_stream(ticks: int, seed: int) -> list:
+    """10b's stream: at each tick 1 .. ``ticks``, ``CW_SPEED_PER_TICK``
+    ``avgSpeed`` readings on the next roads in turn (speeds from
+    ``default_rng(seed)``), then ``CW_LOTS_PER_TICK`` lots in turn, each
+    with its ``nearRoad`` (``road_{4 lot}``) and an ``occupancy`` draw.
+    Returns ``(ts, stream IRI, WindowTriple)`` triples."""
+    import numpy as np
+
+    from kolibrie_tpu_torch import WindowTriple
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for ts in range(1, ticks + 1):
+        speeds = rng.integers(5, 120, CW_SPEED_PER_TICK).tolist()
+        occ = rng.integers(0, 100, CW_LOTS_PER_TICK).tolist()
+        r0 = (ts - 1) * CW_SPEED_PER_TICK
+        for k, v in enumerate(speeds):
+            out.append((ts, "http://city/traffic",
+                        WindowTriple(f"road_{(r0 + k) % CW_ROADS}", "avgSpeed", str(v))))
+        l0 = (ts - 1) * CW_LOTS_PER_TICK
+        for k, v in enumerate(occ):
+            lot = (l0 + k) % CW_LOTS
+            out.append((ts, "http://city/parking",
+                        WindowTriple(f"lot_{lot}", "nearRoad", f"road_{(lot * 4) % CW_ROADS}")))
+            out.append((ts, "http://city/parking", WindowTriple(f"lot_{lot}", "occupancy", str(v))))
+    return out
+
+
+def cw_engine(dev, mode: str, cycles: list):
+    """``RSPBuilder(CW_ENGINE_QUERY)`` with the cross-window rule in
+    ``mode`` on ``dev``; each SDS+ cycle appends to ``cycles`` its emitted
+    rows, wall ms, chosen mode, device route, kernel launches and window
+    content."""
+    import torch
+
+    from kolibrie_tpu_torch import RSPBuilder
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    engine = (RSPBuilder(CW_ENGINE_QUERY, device=dev).set_cross_window_rules(CW_ENGINE_RULE)
+              .set_cross_window_reasoning_mode(mode)
+              .with_consumer(lambda row: cycles[-1]["rows"].append(row)).build())
+    cycle, auto = engine._emit_cross_window, engine._auto_mode
+
+    def chosen(sds):
+        m = auto(sds)
+        cycles[-1]["mode"] = m
+        return m
+
+    def timed_cycle(ts):
+        cycles.append({"ts": ts, "rows": [], "mode": mode})
+        before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        with DeviceRoute() as route, KernelCalls() as calls:
+            sync()
+            t = time.perf_counter()
+            cycle(ts)
+            sync()
+        rec = cycles[-1]
+        rec["wall_ms"] = (time.perf_counter() - t) * 1e3
+        rec["route"] = route.accepted
+        after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        rec["launches"] = ({k: after[k] - before[k] for k in before if after[k] > before[k]}
+                           if on_card else dict(calls.counts))
+        with engine._cw_lock:
+            rec["content"] = {k: len(v) for k, v in engine._latest_contents.items()}
+        rec["rows"] = sorted(rec["rows"])
+
+    engine._emit_cross_window, engine._auto_mode = timed_cycle, chosen
+    return engine
+
+
+def carry_terms(engine, terms) -> None:
+    """Give ``engine`` (fresh, nothing streamed yet) the dictionary
+    ``terms``.  An engine checkpoint holds the SDS+ state and the latest
+    window contents as dictionary IDs (the reference's format), so a
+    restart restores the terms with the data (as
+    ``SparqlDatabase.from_checkpoint`` does) before the engine state."""
+    engine.dictionary = engine.r2r.db.dictionary = engine.static_db.dictionary = terms
+
+
+def run_cw_engine(dev, mode: str, stream: list, checkpoint_tick=None) -> dict:
+    """Drive ``stream`` through :func:`cw_engine`; with ``checkpoint_tick``,
+    also checkpoint the engine once every event up to that tick is in,
+    restore the blob into a fresh engine (given the first engine's terms,
+    :func:`carry_terms`) and feed it the rest of the stream."""
+    from kolibrie_tpu_torch import Dictionary
+
+    cycles: list = []
+    engine = cw_engine(dev, mode, cycles)
+    blob, t0 = None, time.perf_counter()
+    for ts, stream_iri, item in stream:
+        if checkpoint_tick is not None and blob is None and ts > checkpoint_tick:
+            blob = engine.checkpoint_state()
+            terms = Dictionary.from_terms(engine.dictionary.id_to_str)
+            mark = len(cycles)
+        engine.add_to_stream(stream_iri, item, ts)
+    engine.process_single_thread_window_results()
+    wall_s = time.perf_counter() - t0
+    engine.stop()
+    out = {"cycles": cycles, "wall_s": wall_s, "dead_letters": engine.dead_letters}
+    if blob is not None:
+        resumed: list = []
+        fresh = cw_engine(dev, mode, resumed)
+        carry_terms(fresh, terms)
+        fresh.restore_state(blob)
+        for ts, stream_iri, item in stream:
+            if ts > checkpoint_tick:
+                fresh.add_to_stream(stream_iri, item, ts)
+        fresh.process_single_thread_window_results()
+        fresh.stop()
+        out.update(resumed=resumed, resumed_from=mark, blob_bytes=len(blob))
+    for rec in cycles:
+        log(f"10b {dev.type} {mode} cycle at {rec['ts']}: {rec['mode']}, windows {rec['content']}, "
+            f"{len(rec['rows'])} rows, {rec['wall_ms']:.1f} ms, route {rec['route']}, "
+            f"launches {rec['launches']}")
+    log(f"10b {dev.type} {mode}: {len(stream)} events, {len(cycles)} cycles in {wall_s:.2f} s")
+    return out
+
+
+def cw_full(cycle: dict) -> bool:
+    """Both windows of a 10b cycle hold their full width (99% of the
+    distinct roads or lot triples a window can hold)."""
+    traffic = min(CW_ROADS, 60 * CW_SPEED_PER_TICK)
+    parking = 2 * min(CW_LOTS, 120 * CW_LOTS_PER_TICK)
+    c = cycle["content"]
+    return c.get(CW_TRAFFIC, 0) >= 0.99 * traffic and c.get(CW_PARKING, 0) >= 0.99 * parking
+
+
+def check_cw_engine(runs: dict, cpu: dict, on_card: bool) -> None:
+    """10b's gates: every mode emitted the same rows cycle by cycle, rows in
+    every full-width cycle; the first ``CW_CPU_FIRINGS`` full-width cycles
+    equal the CPU naive run's; the restored incremental engine emitted the
+    uninterrupted run's rows; on the card every incremental cycle took the
+    device route and launched its kernels; nothing was dead-lettered."""
+    base = runs["naive"]["cycles"]
+    full = [k for k, c in enumerate(base) if cw_full(c)]
+    for mode, run in runs.items():
+        if run["dead_letters"]:
+            raise AssertionError(f"10b {mode}: dead letters {run['dead_letters']}")
+        cyc = run["cycles"]
+        if len(cyc) != len(base) or any(a["rows"] != b["rows"] for a, b in zip(cyc, base)):
+            raise AssertionError(f"10b {mode}: rows differ from the naive run's")
+        if on_card:
+            for c in cyc:
+                if c["mode"] == "incremental" and (c["route"] != [True] or any(
+                        c["launches"].get(k, 0) < n for k, n in CW_LAUNCHES.items())):
+                    raise AssertionError(f"10b {mode} cycle at {c['ts']}: route {c['route']}, "
+                                         f"launches {c['launches']}")
+    if not full or any(not base[k]["rows"] for k in full):
+        raise AssertionError("10b: a full-width cycle emitted no rows")
+    cpu_full = [c for c in cpu["cycles"] if cw_full(c)][:CW_CPU_FIRINGS]
+    if len(cpu_full) < CW_CPU_FIRINGS or any(
+            c["rows"] != base[k]["rows"] for c, k in zip(cpu_full, full)):
+        raise AssertionError("10b: the card's full-width cycles differ from the CPU run's")
+    inc = runs["incremental"]
+    tail = inc["cycles"][inc["resumed_from"]:]
+    if not tail or [c["rows"] for c in inc["resumed"]] != [c["rows"] for c in tail]:
+        raise AssertionError("10b: the restored engine's rows differ from the uninterrupted run")
+    modes = {c["mode"] for c in runs["auto"]["cycles"]}
+    log(f"10b: {len(base)} cycles ({len(full)} full width) equal across {list(runs)} "
+        f"(auto chose {sorted(modes)}), the first {CW_CPU_FIRINGS} full-width equal the CPU "
+        f"run's, {len(tail)} cycles after the tick-{CW_CHECKPOINT_TICK} checkpoint equal")
+
+
+def run_cw_phase(dev, rsp_card: dict) -> dict:
+    """Phase 10: 10a (``CW_ROADS`` at ``CW_RATIOS``, naive against
+    incremental, against the CPU), 10b (the engine in every mode over
+    ``CW_TICKS`` ticks, against the CPU's naive run and across a
+    checkpoint) and 10c (phase 7's stream under the incremental R2R against
+    phase 7's device rows).  Returns the runs and the largest kernel inputs
+    phase 5 times."""
+    import torch
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    captured = {}
+    t0 = time.perf_counter()
+    card_pts = [run_cw_point(dev, CW_ROADS, r, captured) for r in CW_RATIOS]
+    cpu_pts = [run_cw_point(cpu, CW_ROADS, r, {}) for r in CW_RATIOS]
+    check_cw_points(card_pts, cpu_pts, on_card)
+    t1 = time.perf_counter()
+    stream = cw_stream(CW_TICKS, CW_SEED)
+    install, restore = prov_recorders(captured)
+    if on_card:
+        install()
+    try:
+        runs = {m: run_cw_engine(dev, m, stream,
+                                 CW_CHECKPOINT_TICK if m == "incremental" else None)
+                for m in CW_MODES}
+    finally:
+        restore()
+    # through the tick that closes the card run's third full-width cycle
+    last = [c["ts"] for c in runs["naive"]["cycles"] if cw_full(c)][CW_CPU_FIRINGS - 1] + 1
+    cpu_run = run_cw_engine(cpu, "naive", [e for e in stream if e[0] <= last])
+    check_cw_engine(runs, cpu_run, on_card)
+    t2 = time.perf_counter()
+    inc = run_rsp(dev, "incremental", rsp_stream(RSP_PERSONS, RSP_EVENTS_PER_TICK, RSP_TICKS,
+                                                 RSP_SEED))
+    check_incremental_r2r(inc, rsp_card, on_card)
+    t3 = time.perf_counter()
+    launches = {}
+    for c in card_pts:
+        for k, n in c["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for run in runs.values():
+        for c in run["cycles"]:
+            for k, n in c["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    for k, n in inc["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 10: 10a {t1 - t0:.1f} s, 10b {t2 - t1:.1f} s, 10c {t3 - t2:.1f} s; "
+        f"launches {launches}")
+    for c in card_pts + cpu_pts:
+        del c["naive"], c["incremental"]
+    for k, (key, args) in inc["captured"].items():
+        if key > captured.get(k, (key, None))[0] or k not in captured:
+            captured[k] = (key, args)
+    return {"points": card_pts, "engine": runs, "incremental_r2r": inc, "launches": launches,
+            "captured": captured, "seconds": {"10a": t1 - t0, "10b": t2 - t1, "10c": t3 - t2}}
+
+
+def check_incremental_r2r(inc: dict, card: dict, on_card: bool) -> None:
+    """10c's gates: phase 7's stream under ``set_r2r_mode("incremental")``
+    fired as often as phase 7's device run, with its rows and derived
+    counts firing by firing, no dead letters, and on the card every firing
+    closed on the device tagged fixpoint."""
+    if inc["dead_letters"]:
+        raise AssertionError(f"10c: dead letters {inc['dead_letters']}")
+    if len(inc["firings"]) != len(card["firings"]):
+        raise AssertionError("10c: fired a different number of times than phase 7")
+    for k, (a, b) in enumerate(zip(inc["firings"], card["firings"])):
+        if a["rows"] != b["rows"] or a["derived"] != b["derived"]:
+            raise AssertionError(f"10c firing {k}: {len(a['rows'])} rows / {a['derived']} derived, "
+                                 f"phase 7 {len(b['rows'])} / {b['derived']}")
+        if on_card and a.get("route") != [True]:
+            raise AssertionError(f"10c firing {k}: device route {a.get('route')}")
+    log(f"10c: {len(inc['firings'])} firings equal phase 7's device rows and derived counts, "
+        f"every one on the device tagged fixpoint" if on_card else
+        f"10c: {len(inc['firings'])} firings equal phase 7's rows and derived counts")
+
+
+# ------------------------------------------------ bulk load and checkpoints
+
+LOAD_INSERT = ("INSERT DATA { <http://load.example/a> <http://load.example/p> "
+               "<http://load.example/b> }")
+BUILDER_PREDICATE = "subOrganizationOf"
+
+
+def native_spy(db) -> list:
+    """Make ``db`` record the row count of every native bulk ingest."""
+    calls = []
+    ingest = db._ingest_native_session
+
+    def spy(ids, terms):
+        calls.append(int(ids.shape[0]))
+        return ingest(ids, terms)
+
+    db._ingest_native_session = spy
+    return calls
+
+
+def sorted_rows(rows) -> list:
+    return sorted(map(tuple, rows))
+
+
+def run_load_phase(dev, main_path: dict, lubm, emp) -> dict:
+    """Phase 11 on ``dev``: LUBM-1000 written with ``to_ntriples`` to a
+    temporary file and ``load_file``-d into a fresh database through the
+    native parser; Q2 and Q9 (cold, warm) against phase 4's rows and warm
+    launches; ``checkpoint`` + ``from_checkpoint`` (Q9 again); ``clone`` +
+    INSERT DATA leaving the original alone; ``union`` with employee-100K
+    answering the employee join; employee-100K through ``to_turtle`` and
+    through ``to_rdfxml`` + ``parse_rdf``; one ``QueryBuilder`` query
+    against its SPARQL twin.  Every step timed; launch counters zeroed just
+    before the queries and read just after."""
+    import tempfile
+
+    import torch
+
+    from benches.lubm import LUBM_Q2, LUBM_Q9, UB
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ms: dict = {}
+
+    def step(name, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+        return out
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    want = {"q2": sorted_rows(main_path["rows"]["q2"]), "q9": sorted_rows(main_path["rows"]["q9"])}
+    phase4 = main_path["report"]["queries"]
+    kernels = ("merge_path_join", "lex_probe_select", "lex_probe_validate")
+    captured: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lubm.nt")
+        text = step("to_ntriples", lubm.to_ntriples)
+
+        def write():
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(text)
+
+        step("write", write)
+        nbytes = len(text)
+        del text
+        db = SparqlDatabase(device=dev)
+        native = native_spy(db)
+        n = step("load_file", lambda: db.load_file(path))
+        if n != len(lubm) or native != [n] or len(db) != len(lubm):
+            raise AssertionError(f"11: load_file read {n} rows ({len(db)} triples), native "
+                                 f"ingests {native}, expected {len(lubm)} through the native parser")
+        step("upload", lambda: [db.store.device_segment(o) for o in ("spo", "pos", "osp")])
+
+        def run(name, q, target, label):
+            rows = []
+            for rep in range(2):
+                before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+                rows = step(f"{label}_{'cold' if rep == 0 else 'warm'}",
+                            lambda: execute_query_volcano(q, target))
+            after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+            warm = {k: after[k] - before[k] for k in kernels}
+            if sorted_rows(rows) != want[name]:
+                raise AssertionError(f"11 {label}: rows differ from phase 4's")
+            # phase 4's warm launches (``chip_profile.py`` passes none)
+            if on_card and name in phase4 and any(
+                    warm[k] != phase4[name]["warm_launches"][k] for k in kernels):
+                raise AssertionError(f"11 {label}: warm launches {warm}, phase 4 "
+                                     f"{ {k: phase4[name]['warm_launches'][k] for k in kernels} }")
+            return warm
+
+        K.reset_launches()
+        rec = recorder_install(captured)
+        try:
+            warm = {"q2": run("q2", LUBM_Q2, db, "q2"), "q9": run("q9", LUBM_Q9, db, "q9")}
+        finally:
+            rec()
+        launches = {k: v for k, v in {**K.LAUNCHES, **K.ENTRY_LAUNCHES}.items() if v}
+        ckpt = os.path.join(tmp, "lubm.npz")
+        step("checkpoint", lambda: db.checkpoint(ckpt))
+        ckpt_bytes = os.path.getsize(ckpt)
+        restored = step("from_checkpoint", lambda: SparqlDatabase.from_checkpoint(ckpt, device=dev))
+    run("q9", LUBM_Q9, restored, "q9_restored")
+    before = len(db)
+    clone = step("clone", db.clone)
+    step("insert_data", lambda: execute_query_volcano(LOAD_INSERT, clone))
+    if len(clone) != before + 1 or len(db) != before or sorted_rows(
+            execute_query_volcano(LUBM_Q9, db)) != want["q9"]:
+        raise AssertionError("11: clone + INSERT DATA changed the original")
+    union = step("union", lambda: restored.union(emp))
+    emp_rows = execute_query_volcano(EMPLOYEE_QUERY, union)
+    if sorted_rows(emp_rows) != sorted_rows(main_path["rows"]["employee"]):
+        raise AssertionError("11: the union's employee join differs from phase 4's")
+    emp_set = sorted(emp.iter_decoded())
+    for fmt, parse in (("to_turtle", "parse_turtle"), ("to_rdfxml", "parse_rdf")):
+        text = step(fmt, getattr(emp, fmt))
+        back = SparqlDatabase(device=dev)
+        step(parse, lambda: getattr(back, parse)(text))
+        if sorted(back.iter_decoded()) != emp_set:
+            raise AssertionError(f"11: employee-100K does not round-trip through {fmt}")
+    built = step("query_builder", lambda: db.query().with_predicate(UB + BUILDER_PREDICATE)
+                 .get_decoded_triples())
+    twin = execute_query_volcano(
+        f"SELECT ?s ?o WHERE {{ ?s <{UB}{BUILDER_PREDICATE}> ?o }}", db)
+    if sorted((s, o) for s, _p, o in built) != sorted_rows(twin) or not twin:
+        raise AssertionError("11: the QueryBuilder query differs from its SPARQL twin")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    log(f"11: {len(db)} triples ({nbytes} bytes of N-Triples) through the native parser; Q2, Q9 "
+        f"and Q9 after from_checkpoint ({ckpt_bytes} bytes) equal phase 4's rows, warm launches "
+        f"{warm}; clone, union, turtle and RDF/XML round trips, QueryBuilder ({len(built)} "
+        f"triples) equal; peak device memory {peak} B; ms " +
+        ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return {"ms": ms, "launches": launches, "warm": warm, "captured": captured, "peak_bytes": peak,
+            "nt_bytes": nbytes, "checkpoint_bytes": ckpt_bytes}
+
+
+def recorder_install(captured: dict):
+    """Keep phase 11's largest merge-path and lex-probe calls (no readback)
+    for phase 5; returns the undo."""
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.optimizer import device_engine as DE
+
+    saved = (K.merge_path, DE.lex_probe_select, DE.lex_probe_validate)
+
+    def rec(name, fn, size):
+        def wrapped(*a):
+            if size(a) >= captured.get(name, (0, None))[0]:
+                captured[name] = (size(a), a)
+            return fn(*a)
+        return wrapped
+
+    K.merge_path = rec("merge_path_join", saved[0], lambda a: a[6])
+    DE.lex_probe_select = rec("lex_probe_select", saved[1], lambda a: a[0].shape[0])
+    DE.lex_probe_validate = rec("lex_probe_validate", saved[2], lambda a: a[0].shape[0])
+
+    def undo():
+        K.merge_path, DE.lex_probe_select, DE.lex_probe_validate = saved
+
+    return undo
+
+
+
 # ------------------------------------------------------- kernel timing
 
 
@@ -2489,14 +3088,16 @@ def load_parent_kernels(root: str):
 
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
-    prov: dict, parent=None,
+    prov: dict, cw: dict, load: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
     each path's own count: phases 4 and 4b (the SELECT path) for the SELECT
     kernels, the closure's warm run (phase 6) for the fused filter and the
     closure's merge path, phase 6c for the ops entries, phase 7's device run
-    for the RSP path's merge path and filter.  The merge path's and the
+    for the RSP path's merge path and filter, phase 10's card runs for the
+    cross-window and incremental closures' merge path and filter, phase
+    11's queries after the load for the lex probes.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -2582,6 +3183,27 @@ def kernels_at_main_path_shapes(
     line.append(timed_row("filter_mask[provenance]", csrc + "filter_mask.cu", pk + "887",
                           l9.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
                           check_filter, filter_library(fargs)))
+    # phase 10: its card runs' launches, at the largest calls of its closures
+    cc, l10 = cw["captured"], cw["launches"]
+    line.append(timed_row("merge_path_join[cross_window]", csrc + "merge_join.cu", pk + "181",
+                          l10.get("merge_path_join", 0), cc["merge_path_join"][1], K.merge_path,
+                          K.merge_path_plain, merge_path_bytes, check_merge_path))
+    fargs = cc["filter_mask"][1]
+    line.append(timed_row("filter_mask[cross_window]", csrc + "filter_mask.cu", pk + "887",
+                          l10.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                          check_filter, filter_library(fargs)))
+    # phase 11: its queries' launches, at their largest calls
+    lc, l11 = load["captured"], load["launches"]
+    for name, src, body, fn, plain, nbytes, check in (
+            ("lex_probe_select", "lex_probe.cu", "743", K.lex_probe_select,
+             K.lex_probe_select_plain, select_bytes, check_select),
+            ("lex_probe_validate", "lex_probe.cu", "783", K.lex_probe_validate,
+             K.lex_probe_validate_plain, validate_bytes, check_validate),
+            ("merge_path_join", "merge_join.cu", "181", K.merge_path, K.merge_path_plain,
+             merge_path_bytes, check_merge_path)):
+        if name in lc:
+            line.append(timed_row(f"{name}[load]", csrc + src, pk + body, l11.get(name, 0),
+                                  lc[name][1], fn, plain, nbytes, check))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -2671,9 +3293,16 @@ def main(argv=None) -> int:
     # ---- 9. tagged (provenance) reasoning
     prov = run_prov_phase(dev, lubm, UNIVERSITIES)
 
+    # ---- 10. cross-window SDS+ and the incremental R2R
+    cw = run_cw_phase(dev, rsp)
+
+    # ---- 11. bulk load, checkpoints and the database surface
+    emp = next(db for name, db, _q, _w in queries if name == "employee")
+    load = run_load_phase(dev, main_path, lubm, emp)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
-        main_path, surface, closure, entries, rsp, statements, prov, parent
+        main_path, surface, closure, entries, rsp, statements, prov, cw, load, parent
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

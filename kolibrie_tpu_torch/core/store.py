@@ -23,6 +23,7 @@ import numpy as np
 
 import torch
 
+from kolibrie_tpu_torch.backend import DeviceLike, resolve_device
 from kolibrie_tpu_torch.core.triple import Triple
 from kolibrie_tpu_torch.ops import round_cap
 
@@ -283,9 +284,10 @@ class ColumnarTripleStore:
     #: before first use.
     DELTA_THRESHOLD_DEFAULT = 1024
 
-    def __init__(self, device: torch.device = torch.device("cpu")) -> None:
-        #: torch device of the two-tier mirror (:meth:`device_segment`)
-        self.device = torch.device(device)
+    def __init__(self, device: DeviceLike = None) -> None:
+        #: torch device of the two-tier mirror (:meth:`device_segment`): the
+        #: CUDA card unless the caller passes another
+        self.device = resolve_device(device)
         self._s = _EMPTY
         self._p = _EMPTY
         self._o = _EMPTY
@@ -843,3 +845,85 @@ class ColumnarTripleStore:
         c.delta_threshold = self.delta_threshold
         c.incremental = self.incremental
         return c
+
+    def snapshot(self):
+        """O(1) state capture.  Compaction never mutates column arrays,
+        sort orders, or delta sets in place (it builds new ones and
+        reassigns — ``compact``), so holding references is enough;
+        ``restore`` swaps them back.  The device mirrors are captured as
+        copies of their per-state maps: a mirror uploaded after the
+        snapshot never comes back with the restore, so a query after a
+        restore reads only mirrors of the restored state (or uploads them
+        anew)."""
+        self.compact()
+        return (
+            self._s,
+            self._p,
+            self._o,
+            dict(self._orders),
+            self._version,
+            self._base_s,
+            self._base_p,
+            self._base_o,
+            dict(self._base_orders),
+            self._base_version,
+            self._delta_add_set,
+            self._delta_del_set,
+            self._delta_epoch,
+            dict(self._delta_orders),
+            dict(self._delta_del_pos),
+            dict(self._device_segments),
+            dict(self._device_delta),
+        )
+
+    def restore(self, snap) -> None:
+        """Return to a prior ``snapshot`` state.  O(1): reassigns the saved
+        references and drops any pending mutations recorded since."""
+        (
+            self._s,
+            self._p,
+            self._o,
+            orders,
+            self._version,
+            self._base_s,
+            self._base_p,
+            self._base_o,
+            base_orders,
+            self._base_version,
+            self._delta_add_set,
+            self._delta_del_set,
+            self._delta_epoch,
+            delta_orders,
+            delta_del_pos,
+            segments,
+            delta,
+        ) = snap
+        # copies again, so that filling a map lazily never reaches the
+        # snapshot, which may be restored more than once
+        self._orders = dict(orders)
+        self._base_orders = dict(base_orders)
+        self._delta_orders = dict(delta_orders)
+        self._delta_del_pos = dict(delta_del_pos)
+        self._device_segments = dict(segments)
+        self._device_delta = dict(delta)
+        self._pending_add = []
+        self._pending_del = set()
+
+    # ----------------------------------------------------------- serialization
+
+    def save_npz(self, path: str) -> None:
+        s, p, o = self.columns()
+        np.savez_compressed(path, s=s, p=p, o=o)
+
+    @staticmethod
+    def load_npz(path: str, device: DeviceLike = None) -> "ColumnarTripleStore":
+        """A store holding the columns :meth:`save_npz` wrote (either
+        package's file), mirrored on ``device``: the CUDA card unless the
+        caller passes another."""
+        data = np.load(path)
+        st = ColumnarTripleStore(device)
+        st._s = data["s"].astype(np.uint32)
+        st._p = data["p"].astype(np.uint32)
+        st._o = data["o"].astype(np.uint32)
+        st._merge_base()  # base := loaded columns (fresh store, empty delta)
+        return st

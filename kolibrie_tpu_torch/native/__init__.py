@@ -8,8 +8,8 @@ source directory ``native/`` is only read.  It is host C++ (the SDD engine
 among others), not a device kernel.  Everything here degrades as the
 reference's loader does: if the compiler or the library is unavailable,
 ``load()`` returns None and callers keep using the pure-Python
-implementations.  Only the SDD entry points that ``sdd_native.py`` calls
-are declared.
+implementations.  Only the entry points that ``sdd_native.py``,
+``nt_native.py`` and ``ttl_native.py`` call are declared.
 """
 
 from __future__ import annotations
@@ -59,6 +59,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             [ptr, i64, i64, c.POINTER(i64), c.POINTER(c.c_int8), i64, c.POINTER(i64)],
             i64,
         ),
+        "kn_nt_parse_mt": ([c.c_char_p, i64, c.c_int, c.POINTER(ptr)], i64),
+        "kn_nt_nterms": ([ptr], i64),
+        "kn_nt_term_bytes": ([ptr], i64),
+        "kn_nt_ids": ([ptr, c.POINTER(c.c_uint32)], None),
+        "kn_nt_terms": ([ptr, c.c_char_p, c.POINTER(i64)], None),
+        "kn_nt_free": ([ptr], None),
+        "kn_rx_parse_mt": ([c.c_char_p, i64, c.c_int, c.POINTER(ptr)], i64),
+        "kn_ttl_parse_mt": (
+            [c.c_char_p, i64, c.c_int, c.c_char_p, i64, c.POINTER(ptr)],
+            i64,
+        ),
+        "kn_ttl_nterms": ([ptr], i64),
+        "kn_ttl_term_bytes": ([ptr], i64),
+        "kn_ttl_ids": ([ptr, c.POINTER(c.c_uint32)], None),
+        "kn_ttl_terms": ([ptr, c.c_char_p, c.POINTER(i64)], None),
+        "kn_ttl_prefixes_len": ([ptr], i64),
+        "kn_ttl_prefixes": ([ptr, c.c_char_p], None),
+        "kn_ttl_free": ([ptr], None),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)

@@ -2,12 +2,16 @@
 + dictionary + parsers + prefixes, with the device mirror on an explicit
 torch device.
 
-Port of ``kolibrie_tpu/query/sparql_database.py``, trimmed to what the
-SPARQL statements reach: the pure-Python RDF parsers (the C++ bulk
-tokenizers are not ported), term encoding/decoding, prefixes, the
-numeric-literal table, the optimizer statistics, and the registries that
-``execute_combined`` and RULE definitions read (``rule_map``,
-``neural_relations``, ``probability_seeds``).
+Port of ``kolibrie_tpu/query/sparql_database.py``: the RDF parsers (the
+native bulk tokenizers of the repo's ``native/`` library first, the
+pure-Python parsers where they decline), one-file checkpoints (the
+reference's file format, readable by either package), clone / union /
+``par_join``, the N-Triples, Turtle and RDF/XML serializers, term
+encoding/decoding, prefixes, UDFs, the numeric-literal table, the
+optimizer statistics, and the registries that ``execute_combined`` and
+RULE definitions read (``rule_map``, ``neural_relations``,
+``probability_seeds``).  The ML registries (``model_registry``,
+``trained_models``) come with the ML slice (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -20,12 +24,12 @@ import numpy as np
 import torch
 
 from kolibrie_tpu_torch.backend import DeviceLike, resolve_device
-from kolibrie_tpu_torch.core.dictionary import Dictionary
+from kolibrie_tpu_torch.core.dictionary import QUOTED_BIT, Dictionary
 from kolibrie_tpu_torch.core.quoted import QuotedTripleStore
 from kolibrie_tpu_torch.core.store import ColumnarTripleStore
 from kolibrie_tpu_torch.core.triple import Triple
 from kolibrie_tpu_torch.query import rdf_parsers
-from kolibrie_tpu_torch.query.rdf_parsers import ParsedTerm
+from kolibrie_tpu_torch.query.rdf_parsers import ParsedTerm, format_term_nt
 
 _NUM_RE = re.compile(r'^"([+-]?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)"')
 
@@ -146,9 +150,28 @@ class SparqlDatabase:
         return n
 
     def parse_turtle(self, data: str) -> int:
+        native = self._parse_turtle_native(data)
+        if native is not None:
+            return native
         triples, prefixes = rdf_parsers.parse_turtle(data, self.prefixes)
         self.prefixes.update(prefixes)
         return self._ingest(triples)
+
+    def _parse_turtle_native(self, data: str) -> Optional[int]:
+        """Bulk fast path: chunk-parallel C++ Turtle tokenizer + unique-term
+        interning (see :mod:`kolibrie_tpu_torch.native.ttl_native`).  Returns None
+        (fall back) for Turtle-star / ``[]`` / ``()`` / multiline strings /
+        ``@base`` or if native is off."""
+        try:
+            from kolibrie_tpu_torch.native.ttl_native import bulk_parse_turtle
+        except ImportError:
+            return None
+        result = bulk_parse_turtle(data, self.prefixes)
+        if result is None:
+            return None
+        ids, terms, prefixes_out = result
+        self.prefixes.update(prefixes_out)
+        return self._ingest_native_session(ids, terms)
 
     def parse_n3(self, data: str) -> int:
         triples, prefixes = rdf_parsers.parse_n3(data, self.prefixes)
@@ -156,7 +179,105 @@ class SparqlDatabase:
         return self._ingest(triples)
 
     def parse_ntriples(self, data: str) -> int:
+        native = self._parse_ntriples_native(data)
+        if native is not None:
+            return native
         return self._ingest(rdf_parsers.parse_ntriples(data))
+
+    def _ingest_native_session(self, ids: np.ndarray, terms) -> int:
+        """Shared tail of every native bulk parse: intern the session's
+        UNIQUE terms once (``encode_batch``), then remap the (n, 3)
+        1-based id matrix with one vectorized gather into the store.
+        ``remap[0]`` is intentionally never read (ids are 1-based)."""
+        remap = np.empty(len(terms) + 1, dtype=np.uint32)
+        remap[1:] = self.dictionary.encode_batch(terms)
+        cols = remap[ids]
+        self.store.add_batch(cols[:, 0], cols[:, 1], cols[:, 2])
+        return int(ids.shape[0])
+
+    def _parse_ntriples_native(self, data: str) -> Optional[int]:
+        """Bulk fast path: C++ tokenizer + unique-term interning; Python
+        interns only unique terms, then one vectorized remap.  Returns None
+        (fall back) for RDF-star / Turtle constructs or if native is off."""
+        try:
+            from kolibrie_tpu_torch.native.nt_native import bulk_parse_ntriples
+        except ImportError:
+            return None
+        result = bulk_parse_ntriples(data)
+        if result is None:
+            return None
+        return self._ingest_native_session(*result)
+
+    # ------------------------------------------------- preemption/restart
+
+    def checkpoint(self, path: str) -> None:
+        """One-file durable snapshot of the DATA state (docs/PREEMPTION.md):
+        triple columns, dictionary, quoted-triple table, prefixes, and
+        probability seeds.  Rules, UDFs, neural registries, and device
+        residency are CONFIGURATION/derived state — re-registered by the
+        application and lazily rebuilt from the restored columns.  The
+        reference keeps everything in memory with no snapshot at all
+        (SURVEY §5 "checkpoint/resume: none")."""
+        from kolibrie_tpu_torch.durability.fsio import atomic_write
+
+        s, p, o = self.store.columns()
+        seeds = self.probability_seeds
+        # write through a file object: np.savez_compressed appends ".npz"
+        # to bare string paths, which would break same-path restore.
+        # temp → fsync → rename: a kill -9 mid-checkpoint leaves the
+        # previous checkpoint intact, never a torn half-file
+        with atomic_write(path) as fh:
+            self._checkpoint_to(fh, s, p, o, seeds)
+
+    def _checkpoint_to(self, fh, s, p, o, seeds) -> None:
+        import pickle
+
+        np.savez_compressed(
+            fh,
+            s=s,
+            p=p,
+            o=o,
+            terms=np.frombuffer(
+                pickle.dumps(self.dictionary.id_to_str), dtype=np.uint8
+            ),
+            quoted=np.asarray(
+                [
+                    (qid, t[0], t[1], t[2])
+                    for qid, t in sorted(self.quoted.items())
+                ],
+                dtype=np.uint64,
+            ).reshape(-1, 4),
+            prefixes=np.frombuffer(pickle.dumps(self.prefixes), dtype=np.uint8),
+            seeds=np.asarray(
+                [(k[0], k[1], k[2], v) for k, v in sorted(seeds.items())],
+                dtype=np.float64,
+            ).reshape(-1, 4),
+        )
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device: DeviceLike = None) -> "SparqlDatabase":
+        """Rebuild a database from :meth:`checkpoint` output (either
+        package's) on ``device``, the CUDA card unless the caller passes
+        another; indexes and device mirrors are built anew from the
+        restored columns on first use."""
+        import pickle
+
+        data = np.load(path, allow_pickle=False)
+        db = cls(device)
+        db.store.add_batch(
+            data["s"].astype(np.uint32),
+            data["p"].astype(np.uint32),
+            data["o"].astype(np.uint32),
+        )
+        db.dictionary = Dictionary.from_terms(pickle.loads(data["terms"].tobytes()))
+        for qid, s_, p_, o_ in data["quoted"].astype(np.uint64).tolist():
+            key = (int(s_), int(p_), int(o_))
+            db.quoted.triple_to_id[key] = int(qid)
+            db.quoted.id_to_triple[int(qid)] = key
+        db.prefixes = pickle.loads(data["prefixes"].tobytes())
+        for s_, p_, o_, prob in data["seeds"].tolist():
+            db.probability_seeds[(int(s_), int(p_), int(o_))] = float(prob)
+        return db
 
     @classmethod
     def from_arrays(
@@ -184,6 +305,185 @@ class SparqlDatabase:
         )
         return db
 
+    # --------------------------------------------------- whole-database ops
+
+    def _remap_from(self, other: "SparqlDatabase"):
+        """Id remap other→self: ``(remap, qremap)`` where ``remap`` is a
+        vectorized per-plain-id array (other's terms bulk-interned into
+        self's dictionary) and ``qremap`` maps other's quoted-triple ids
+        after a store merge (None when other has no quoted triples)."""
+        its = other.dictionary.id_to_str
+        n_plain = len(its)
+        remap = np.zeros(n_plain, dtype=np.uint32)
+        if n_plain > 1:
+            remap[1:] = self.dictionary.encode_batch(its[1:])
+        if len(other.quoted) == 0:
+            return remap, None
+        # only the plain ids actually referenced inside quoted triples need
+        # dict entries (not the whole id space)
+        refs = set()
+        for _qid, (qs, qp, qo) in other.quoted.items():
+            for t in (qs, qp, qo):
+                if not (t & QUOTED_BIT):
+                    refs.add(t)
+        term_remap = {i: int(remap[i]) for i in refs}
+        qremap = self.quoted.merge(other.quoted, term_remap)
+        return remap, qremap
+
+    @staticmethod
+    def _apply_remap(col: np.ndarray, remap: np.ndarray, qremap) -> np.ndarray:
+        if qremap is None:
+            return remap[col]
+        quoted = (col & QUOTED_BIT) != 0
+        out = remap[np.where(quoted, 0, col)]
+        if quoted.any():
+            out[quoted] = [qremap[int(q)] for q in col[quoted]]
+        return out
+
+    def union(self, other: "SparqlDatabase") -> "SparqlDatabase":
+        """New database holding both stores' triples: other's ids re-encoded
+        through a merged dictionary, probability seeds merged, prefixes/
+        UDFs/registries from self.  Parity: the reference's
+        whole-DB ``union`` (``sparql_database.rs:1990-2041``) — vectorized
+        remap instead of a per-triple decode/encode loop."""
+        out = self.clone()
+        remap, qremap = out._remap_from(other)
+        s, p, o = other.store.columns()
+        out.store.add_batch(
+            *(self._apply_remap(c, remap, qremap) for c in (s, p, o))
+        )
+
+        def map_id(i: int) -> int:
+            if qremap is not None and (i & QUOTED_BIT):
+                return qremap[i]
+            return int(remap[i])
+
+        for (ts, tp, to), prob in other.probability_seeds.items():
+            out.probability_seeds[
+                (map_id(ts), map_id(tp), map_id(to))
+            ] = prob
+        return out
+
+    def par_join(
+        self, other: "SparqlDatabase", predicate: str
+    ) -> "SparqlDatabase":
+        """New database with the join of the two stores along ``predicate``:
+        for self ``(a, p, b)`` and other ``(b, p, c)``, emit ``(a, p, c)``.
+        Shares self's dictionary (ids remain valid); other's ids are
+        remapped first, so the databases need not share an id space.
+        Parity: ``sparql_database.rs:2042-2117`` ``par_join`` — one
+        vectorized sort join instead of a rayon fold."""
+        from kolibrie_tpu_torch.ops.join import join_indices
+
+        out = SparqlDatabase(self.device)
+        out.dictionary = self.dictionary  # shared, like the reference
+        out.quoted = self.quoted
+        out.prefixes = dict(self.prefixes)
+        # normalized non-interning lookup (<iri> brackets accepted); an
+        # unknown predicate joins nothing and must not pollute the SHARED
+        # dictionary with a garbage term
+        pid = self.lookup_term_str(predicate)
+        if pid is None:
+            return out
+        remap, qremap = self._remap_from(other)
+        os_, op, oo = (
+            self._apply_remap(c, remap, qremap)
+            for c in other.store.columns()
+        )
+        s, p, o = self.store.columns()
+        lmask = p == pid
+        rmask = op == pid
+        li, ri = join_indices(
+            o[lmask].astype(np.uint64), os_[rmask].astype(np.uint64)
+        )
+        ls = s[lmask][li]
+        ro = oo[rmask][ri]
+        out.store.add_batch(
+            ls, np.full(len(ls), pid, dtype=np.uint32), ro
+        )
+        return out
+
+    def parse_rdf(self, data: str) -> int:
+        """RDF/XML. Parity: ``sparql_database.rs:401`` ``parse_rdf``."""
+        native = self._parse_rdf_native(data)
+        if native is not None:
+            return native
+        return self._ingest(rdf_parsers.parse_rdf_xml(data))
+
+    def _parse_rdf_native(self, data: str) -> Optional[int]:
+        """Bulk fast path: streaming C++ RDF/XML parser + unique-term
+        interning.  None (fall back to ElementTree) for shapes outside the
+        common bulk subset — see ``bulk_parse_rdf_xml``."""
+        try:
+            from kolibrie_tpu_torch.native.nt_native import bulk_parse_rdf_xml
+        except ImportError:
+            return None
+        result = bulk_parse_rdf_xml(data)
+        if result is None:
+            return None
+        return self._ingest_native_session(*result)
+
+    def parse_rdf_from_file(self, path: str) -> int:
+        with open(path, "r", encoding="utf-8") as f:
+            return self.parse_rdf(f.read())
+
+    def load_file(self, path: str, fmt: Optional[str] = None) -> int:
+        if fmt is None:
+            for ext, f in (
+                (".ttl", "turtle"),
+                (".nt", "ntriples"),
+                (".n3", "n3"),
+                (".rdf", "rdfxml"),
+                (".xml", "rdfxml"),
+                (".owl", "rdfxml"),
+            ):
+                if path.endswith(ext):
+                    fmt = f
+                    break
+            else:
+                fmt = "turtle"
+        with open(path, "r", encoding="utf-8") as fh:
+            data = fh.read()
+        if fmt in ("rdfxml", "rdf/xml", "xml"):
+            return self.parse_rdf(data)
+        if fmt in ("nt", "ntriples"):
+            return self.parse_ntriples(data)
+        if fmt == "n3":
+            return self.parse_n3(data)
+        return self.parse_turtle(data)
+
+    # ---------------------------------------------------------- serialization
+
+    def iter_decoded(self):
+        for t in self.store:
+            yield (
+                self.decode_term(t.subject),
+                self.decode_term(t.predicate),
+                self.decode_term(t.object),
+            )
+
+    def to_ntriples(self) -> str:
+        out = []
+        for s, p, o in self.iter_decoded():
+            out.append(f"{format_term_nt(s)} {format_term_nt(p)} {format_term_nt(o)} .")
+        return "\n".join(out) + ("\n" if out else "")
+
+    def to_turtle(self) -> str:
+        """Subject/predicate-grouped Turtle-star with prefix compaction
+        (``generate_turtle``, sparql_database.rs:343-400)."""
+        from kolibrie_tpu_torch.query.rdf_parsers import serialize_turtle
+
+        return serialize_turtle(self.iter_decoded(), self.prefixes)
+
+    def to_rdfxml(self) -> str:
+        """RDF/XML export (``generate_rdf_xml``, sparql_database.rs:277-317).
+        Quoted-triple (RDF-star) facts are omitted — RDF/XML cannot express
+        them; use :meth:`to_ntriples`/:meth:`to_turtle`.  Raises
+        ``ValueError`` if a predicate IRI cannot form an XML QName."""
+        from kolibrie_tpu_torch.query.rdf_parsers import serialize_rdfxml
+
+        return serialize_rdfxml(self.iter_decoded(), self.prefixes)
+
     # -------------------------------------------------------------- prefixes
 
     def register_prefix(self, prefix: str, iri: str) -> None:
@@ -210,6 +510,12 @@ class SparqlDatabase:
                 if ns is not None:
                     return ns + local
         return term
+
+    # ------------------------------------------------------------------ UDFs
+
+    def register_udf(self, name: str, fn: Callable) -> None:
+        """Parity: ``sparql_database.rs:3164`` UDF registry."""
+        self.udfs[name.upper()] = fn
 
     # --------------------------------------------------------- numeric cache
 
@@ -261,6 +567,27 @@ class SparqlDatabase:
             self._stats = DatabaseStats.gather_stats_fast(self)
             self._stats_version = v
         return self._stats
+
+    def query(self):
+        """Fluent builder entry point (python/src/py_query_builder.rs surface)."""
+        from kolibrie_tpu_torch.query.builder import QueryBuilder
+
+        return QueryBuilder(self)
+
+    def clone(self) -> "SparqlDatabase":
+        """An independent database on the same device: the store is a
+        copy-on-write clone, the dictionary, quoted table and registries
+        are copies."""
+        db = SparqlDatabase(self.device)
+        db.store = self.store.clone()
+        db.dictionary = self.dictionary.clone()
+        db.quoted = self.quoted.clone()
+        db.prefixes = dict(self.prefixes)
+        db.udfs = dict(self.udfs)
+        db.rule_map = dict(self.rule_map)
+        db.neural_relations = dict(self.neural_relations)
+        db.probability_seeds = dict(self.probability_seeds)
+        return db
 
 
 def split_quoted_triple_content(content: str) -> List[str]:

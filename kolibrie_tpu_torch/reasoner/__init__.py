@@ -2,11 +2,11 @@
 semi-naive strategies and the device semi-naive fixpoint, provenance
 semirings with the device tagged fixpoint, SDD-based exact inference,
 stratified negation, backward chaining, constraints and repairs,
-hierarchical reasoning and the DOT export.
+hierarchical reasoning, the DOT export and cross-window streaming
+reasoning (SDS+, :mod:`.cross_window`).
 
 Port of ``kolibrie_tpu/reasoner/`` (parity: the reference's ``datalog/``
-crate plus ``shared/src/{provenance,sdd,diff_sdd,tag_store,seed_spec}.rs``);
-cross-window streaming reasoning is a later slice.
+crate plus ``shared/src/{provenance,sdd,diff_sdd,tag_store,seed_spec}.rs``).
 """
 
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner

@@ -192,13 +192,27 @@ def _seed_tag_arrays(provenance, tag_store, cols) -> Tuple[np.ndarray, float]:
     "no explicit TagStore entry" (premise reads see one(); the first
     derivation overwrites — update_disjunction parity).  Shared by both
     device drivers.  Entries of absent facts are ignored, as in the
-    reference."""
+    reference.
+
+    Tags are read with ``tag_store.tags.get`` semantics.  A plain dict is
+    looked up by its own keys on the device; a map whose ``get`` resolves
+    more than its own entries (the incremental SDS+ overlay, which falls
+    back to the prior windows' expiries) is read with one ``get`` per fact,
+    as the reference does for every map."""
     one_enc = float(_encode_tags(provenance, [provenance.one()])[0])
     n = cols[0].shape[0]
+    tags = tag_store.tags
+    if type(tags).get is not dict.get:
+        tget = tags.get
+        host = [tget(k) for k in zip(*(c.cpu().tolist() for c in cols))]
+        absent = np.fromiter((t is None for t in host), dtype=bool, count=n)
+        one = provenance.one()
+        enc = _encode_tags(provenance, [one if t is None else t for t in host])
+        return np.where(absent, np.nan, enc), one_enc
     tags0 = np.full(n, np.nan)
-    if tag_store.tags:
-        rows = _fact_rows(cols, list(tag_store.tags.keys()))
-        vals = _encode_tags(provenance, list(tag_store.tags.values()))
+    if tags:
+        rows = _fact_rows(cols, list(tags.keys()))
+        vals = _encode_tags(provenance, list(tags.values()))
         hit = rows < n
         tags0[rows[hit]] = vals[hit]
     return tags0, one_enc

@@ -1,13 +1,12 @@
 """N3 logic rule parser: ``{ premises } => { conclusions } .`` documents.
 
-Parity: ``datalog/src/parser_n3_logic.rs`` — ``parse_n3_rule`` (:135) and
+Parity: ``datalog/src/parser_n3_logic.rs`` — ``parse_n3_rule`` (:135),
 ``parse_n3_document`` multi-rule documents with a shared prefix block and
-EOF validation (:227).
+EOF validation (:227), and ``parse_n3_rules_for_sds`` (:286-360) which maps
+predicate constants to their owning window IRIs (longest-prefix match) and
+discovers output component IRIs for cross-window reasoning.
 
 Copy of ``kolibrie_tpu/reasoner/n3_parser.py`` for the PyTorch port.
-``parse_n3_rules_for_sds`` (cross-window reasoning) comes with the
-provenance slice; :class:`WindowContext` is here for the RSP engine's
-signature.
 """
 
 from __future__ import annotations
@@ -221,3 +220,38 @@ class WindowContext:
     window_iris: List[str] = field(default_factory=list)
     predicate_windows: Dict[str, str] = field(default_factory=dict)
     output_iris: List[str] = field(default_factory=list)
+
+
+def parse_n3_rules_for_sds(
+    text: str, dictionary, window_iris: List[str]
+) -> Tuple[List[Rule], WindowContext]:
+    """Parse rules whose predicate IRIs are prefixed by window IRIs; maps
+    each predicate constant to its owning window (longest-prefix match) and
+    collects non-window IRIs as output components."""
+    prefixes: Dict[str, str] = {}
+    clean = _strip_comments(text)
+    for m in _PREFIX_RE.finditer(clean):
+        prefixes[m.group(1)] = m.group(2)
+    rest = _PREFIX_RE.sub("", clean)
+    ctx = WindowContext(window_iris=list(window_iris))
+    rules: List[Rule] = []
+    for m in _RULE_RE.finditer(rest):
+        premises = _parse_patterns(m.group(1), prefixes)
+        conclusions = _parse_patterns(m.group(2), prefixes)
+        rules.append(_to_rule(dictionary, premises, conclusions))
+        for (sk, sv), (pk, pv), (ok_, ov) in premises + conclusions:
+            if pk != "const":
+                continue
+            owner = None
+            for w in sorted(window_iris, key=len, reverse=True):
+                if pv.startswith(w):
+                    owner = w
+                    break
+            if owner is not None:
+                ctx.predicate_windows[pv] = owner
+            else:
+                # non-window component: candidate output IRI namespace
+                base = pv.rsplit("/", 1)[0] + "/" if "/" in pv else pv
+                if base not in ctx.output_iris and base not in window_iris:
+                    ctx.output_iris.append(base)
+    return rules, ctx

@@ -90,9 +90,10 @@ class RSPBuilder:
         """Per-window reasoning backend: ``"device"`` (device-resident
         window columns + device fixpoint per firing —
         :class:`kolibrie_tpu_torch.rsp.r2r.DeviceR2R`; also ``"auto"`` and
-        the default) or ``"host"`` (host closure per firing).
-        ``"incremental"`` (expiration provenance) is not ported: the
-        engine raises."""
+        the default), ``"host"`` (host closure per firing), or
+        ``"incremental"`` (expiration-provenance closure carried across
+        firings, delta-seeded per firing —
+        :class:`kolibrie_tpu_torch.rsp.r2r.IncrementalR2R`)."""
         self._r2r_mode = mode
         return self
 

@@ -7,17 +7,20 @@ MultiThread (queue + thread) registration (:191-212), the multi-window
 coordinator joining the latest window results + static data under the
 ``SyncPolicy`` (Steal / Wait / Timeout{Steal,Drop}; :488-660), shared
 dictionary between query plans and the R2R store (:272-293), a separate
-static background database (:296-300), and R2S applied at emission
-(:449-460).
+static background database (:296-300), opt-in cross-window SDS+ mode where
+raw (Triple, ts) window contents are routed to the coordinator which runs
+``incremental_sds_plus`` / ``naive_sds_plus`` per cycle (:114-135, :1059+),
+and R2S applied at emission (:449-460).
 
 Port of ``kolibrie_tpu/rsp/engine.py``.  The engine runs on ``device``
 (the CUDA card unless the caller passes another): the R2R store and the
 static database live there, and every window query runs on the device
 engine.  ``r2r_mode`` None or ``"auto"`` means ``"device"``
 (:class:`DeviceR2R`); ``"host"`` closes each firing with the host strategy
-(:class:`SimpleR2R`).  Cross-window SDS+ reasoning and
-``r2r_mode="incremental"`` run expiration provenance, which comes with the
-provenance slice: asking for them raises :class:`NotImplementedError`.
+(:class:`SimpleR2R`); ``"incremental"`` carries the closure across firings
+as expiration provenance (:class:`IncrementalR2R`, one window; several
+windows take :class:`SimpleR2R`, as in the reference).  Cross-window SDS+
+cycles build their reasoners and per-window databases on the same device.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from kolibrie_tpu_torch.backend import DeviceLike
@@ -41,16 +44,21 @@ from kolibrie_tpu_torch.query.ast import (
 )
 from kolibrie_tpu_torch.query.executor import eval_select_to_table, format_results, table_header
 from kolibrie_tpu_torch.query.sparql_database import SparqlDatabase
+from kolibrie_tpu_torch.reasoner.cross_window import (
+    Sds,
+    SdsWithExpiry,
+    WindowData,
+    WindowedTriple,
+    all_component_iris,
+    incremental_sds_plus,
+    naive_sds_plus,
+    sds_with_expiry_to_external,
+)
 from kolibrie_tpu_torch.reasoner.n3_parser import WindowContext
-from kolibrie_tpu_torch.rsp.r2r import DeviceR2R, SimpleR2R
+from kolibrie_tpu_torch.rsp.r2r import DeviceR2R, IncrementalR2R, SimpleR2R
 from kolibrie_tpu_torch.rsp.r2s import Relation2StreamOperator, StreamOperator
 from kolibrie_tpu_torch.rsp.s2r import ContentContainer, WindowTriple
 from kolibrie_tpu_torch.rsp.window_runner import WindowRunner, WindowSpec
-
-_PROVENANCE_SLICE = (
-    "runs expiration provenance (reasoner/device_provenance.py, "
-    "ROADMAP queue 1 item 13), which is not ported to kolibrie_tpu_torch yet"
-)
 
 # Streaming health metrics (docs/OBSERVABILITY.md).  Window IRIs come
 # from registered queries, so the label set is bounded by configuration.
@@ -80,12 +88,21 @@ class OperationMode:
 
 
 class CrossWindowReasoningMode:
-    """Cross-window SDS+ modes of the reference (not ported: the engine
-    raises when cross-window rules are given)."""
-
     INCREMENTAL = "incremental"
     NAIVE = "naive"
+    # AUTO picks per cycle: incremental maintenance when the fraction of
+    # window content not seen last cycle is small, full recomputation
+    # otherwise.  The reference offers only a static choice
+    # (rsp_engine.rs CrossWindowReasoningMode); the measured crossover
+    # makes the per-cycle decision automatic here.
     AUTO = "auto"
+
+
+# AUTO threshold, carried from the JAX package (its own sweep,
+# benches/bench_cross_window.py + bench_family_tree.py: incremental won
+# 1.4-2x at 1-2% updates and broke even at 10%).  PERF.md records the
+# port's sweep on the H100 (chip_profile.py::profile_churn_sweep).
+_AUTO_MAX_CHURN = 0.08
 
 
 @dataclass
@@ -104,6 +121,7 @@ class WindowResult:
     window_iri: str
     results: List[Dict[str, str]]
     timestamp: int
+    raw_triples: List[Tuple[Triple, int]] = field(default_factory=list)
 
 
 def natural_join_maps(
@@ -219,8 +237,6 @@ class RSPEngine:
         supervision=None,
         device: DeviceLike = None,
     ):
-        if cross_window_rules is not None or cross_window_rules_text:
-            raise NotImplementedError("cross-window SDS+ reasoning " + _PROVENANCE_SLICE)
         self.window_configs = window_configs
         self.operation_mode = operation_mode
         # window supervision policy (resilience.supervisor): None uses the
@@ -232,13 +248,22 @@ class RSPEngine:
 
         # R2R store; one dictionary shared across store, static db, plans.
         # r2r_mode: "device" (None, "auto") = device-resident window columns
-        # + device fixpoint (DeviceR2R); "host" = host closure per firing.
+        # + device fixpoint (DeviceR2R); "host" = host closure per firing;
+        # "incremental" = expiration-provenance closure carried across
+        # firings (IncrementalR2R).
         if r2r_mode in (None, "auto", "device"):
             self.r2r = DeviceR2R(SparqlDatabase(device=device))
         elif r2r_mode == "host":
             self.r2r = SimpleR2R(SparqlDatabase(device=device))
         elif r2r_mode == "incremental":
-            raise NotImplementedError("r2r_mode='incremental' " + _PROVENANCE_SLICE)
+            if len(window_configs) > 1:
+                # the single prune clock is only exact for one window;
+                # multi-window incremental reasoning is the cross-window
+                # SDS+ path's job (per-window expiries) — see
+                # IncrementalR2R's exactness-domain note
+                self.r2r = SimpleR2R(SparqlDatabase(device=device))
+            else:
+                self.r2r = IncrementalR2R(SparqlDatabase(device=device))
         else:
             raise ValueError(f"unknown r2r_mode {r2r_mode!r}")
         self.dictionary = self.r2r.db.dictionary
@@ -266,8 +291,31 @@ class RSPEngine:
 
         # single-thread coordination state
         self._st_last_materialized: Dict[str, List[Dict[str, str]]] = {}
+        # cross-window state (rules may arrive pre-parsed or as N3 text,
+        # which is parsed against THIS engine's dictionary so IDs align)
+        if cross_window_rules_text:
+            from kolibrie_tpu_torch.reasoner.n3_parser import parse_n3_rules_for_sds
 
-        self._has_joins = len(window_configs) > 1 or self.static_query is not None
+            window_iris = [c.window_iri for c in window_configs]
+            cross_window_rules, cross_window_context = parse_n3_rules_for_sds(
+                cross_window_rules_text, self.dictionary, window_iris
+            )
+        self.cross_window_enabled = cross_window_rules is not None
+        self.cross_window_rules = cross_window_rules or []
+        self.cross_window_context = cross_window_context
+        self.cross_window_mode = cross_window_mode
+        self._sds_plus_state: SdsWithExpiry = {}  # guarded by: _cw_lock
+        self._latest_contents: Dict[str, List[Tuple[Triple, int]]] = {}  # guarded by: _cw_lock
+        self._cw_lock = threading.Lock()
+        # AUTO-mode churn baseline: written by the coordinator each
+        # cross-window cycle and reset by restore_state
+        self._auto_prev_alive: Optional[frozenset] = None  # guarded by: _cw_lock
+
+        self._has_joins = (
+            len(window_configs) > 1
+            or self.static_query is not None
+            or self.cross_window_enabled
+        )
 
         from kolibrie_tpu_torch.optimizer import mqo as _mqo
 
@@ -304,14 +352,32 @@ class RSPEngine:
         prev_window_triples: List = []
 
         def fire(content: ContentContainer, ts: int):
+            if self.cross_window_enabled:
+                raw: List[Tuple[Triple, int]] = []
+                for item, event_ts in content.iter_with_timestamps():
+                    raw.append((self._item_to_triple(item), event_ts))
+                self._result_queue.put(
+                    WindowResult(cfg.window_iri, [], ts, raw)
+                )
+                return
             with self._store_lock:
-                for t in prev_window_triples:
-                    self.r2r.remove(t)
-                prev_window_triples.clear()
-                for item in content:
-                    prev_window_triples.append(item)
-                    self.r2r.add(item)
-                self.r2r.materialize()
+                if isinstance(self.r2r, IncrementalR2R):
+                    # delta-incremental: reconcile full content (overlap is
+                    # O(1) per re-fed item), closure seeded with the delta
+                    self.r2r.feed_window(
+                        cfg.window_iri,
+                        cfg.width,
+                        content.iter_with_timestamps(),
+                    )
+                    self.r2r.materialize_incremental()
+                else:
+                    for t in prev_window_triples:
+                        self.r2r.remove(t)
+                    prev_window_triples.clear()
+                    for item in content:
+                        prev_window_triples.append(item)
+                        self.r2r.add(item)
+                    self.r2r.materialize()
                 # fire-time registration scope (bookkeeping with MQO off)
                 from kolibrie_tpu_torch.optimizer import mqo as _mqo
 
@@ -330,7 +396,7 @@ class RSPEngine:
             _EVENT_LAG.labels(cfg.window_iri).observe(
                 max(0, self._max_event_ts - ts)
             )
-            if self._has_joins:
+            if self.cross_window_enabled or self._has_joins:
                 # result rides _result_queue: emission happens later, in
                 # _emit — remember the EARLIEST pending fire start
                 with self._cw_lock:
@@ -345,6 +411,17 @@ class RSPEngine:
             )
 
         return processor
+
+    def _item_to_triple(self, item) -> Triple:
+        if isinstance(item, Triple):
+            return item
+        if isinstance(item, WindowTriple):
+            return Triple(
+                self.r2r.db.encode_term_str(item.s),
+                self.r2r.db.encode_term_str(item.p),
+                self.r2r.db.encode_term_str(item.o),
+            )
+        raise TypeError(f"unsupported stream item {item!r}")
 
     def _register_windows(self) -> None:
         """Register per-window processors UNDER SUPERVISION
@@ -430,10 +507,16 @@ class RSPEngine:
             self._st_last_materialized.setdefault(wr.window_iri, []).extend(
                 wr.results
             )
+            if self.cross_window_enabled:
+                with self._cw_lock:
+                    self._latest_contents[wr.window_iri] = list(wr.raw_triples)
         if not had_new:
             return
         if len(self._st_last_materialized) == len(self.windows):
-            self._emit(self._st_last_materialized, max_ts)
+            if self.cross_window_enabled:
+                self._emit_cross_window(max_ts)
+            else:
+                self._emit(self._st_last_materialized, max_ts)
             self._st_last_materialized = {}
 
     # ------------------------------------------------------------ coordinator
@@ -460,7 +543,10 @@ class RSPEngine:
                     if cycle_triggered:
                         if policy.fallback == TimeoutFallback.STEAL:
                             if len(last_materialized) == num_windows:
-                                self._emit(last_materialized, max_ts)
+                                if self.cross_window_enabled:
+                                    self._emit_cross_window(max_ts)
+                                else:
+                                    self._emit(last_materialized, max_ts)
                         # Drop: discard the cycle
                         cycle_triggered.clear()
                         cycle_start = None
@@ -470,6 +556,9 @@ class RSPEngine:
                     break
                 max_ts = max(max_ts, wr.timestamp)
                 last_materialized[wr.window_iri] = list(wr.results)
+                if self.cross_window_enabled:
+                    with self._cw_lock:
+                        self._latest_contents[wr.window_iri] = list(wr.raw_triples)
                 if not cycle_triggered:
                     cycle_start = time.monotonic()
                 cycle_triggered.add(wr.window_iri)
@@ -483,16 +572,27 @@ class RSPEngine:
                         return
                     max_ts = max(max_ts, extra.timestamp)
                     last_materialized[extra.window_iri] = list(extra.results)
+                    if self.cross_window_enabled:
+                        with self._cw_lock:
+                            self._latest_contents[extra.window_iri] = list(
+                                extra.raw_triples
+                            )
                     cycle_triggered.add(extra.window_iri)
                 if len(cycle_triggered) == num_windows:
-                    self._emit(last_materialized, max_ts)
+                    if self.cross_window_enabled:
+                        self._emit_cross_window(max_ts)
+                    else:
+                        self._emit(last_materialized, max_ts)
                     cycle_triggered.clear()
                     cycle_start = None
                     max_ts = 0
                 elif policy.kind == SyncPolicyKind.STEAL:
                     # emit immediately with stale data from non-firing windows
                     if len(last_materialized) == num_windows:
-                        self._emit(last_materialized, max_ts)
+                        if self.cross_window_enabled:
+                            self._emit_cross_window(max_ts)
+                        else:
+                            self._emit(last_materialized, max_ts)
                     cycle_triggered.clear()
                     cycle_start = None
                     max_ts = 0
@@ -531,22 +631,160 @@ class RSPEngine:
         if pending:
             _CLOSE_TO_EMIT.observe(time.perf_counter() - min(pending))
 
+    # ---------------------------------------------------------- cross-window
+
+    def _build_sds(self) -> Sds:
+        sds = Sds()
+        dec = self.dictionary.decode
+        enc = self.dictionary.encode
+        with self._cw_lock:
+            latest = {k: list(v) for k, v in self._latest_contents.items()}
+        # Per-cycle wrapper memo: window contents evolve incrementally, so
+        # reusing each event's WindowedTriple (with its pre-computed encode
+        # memo) makes the SDS translation cost track NEW arrivals, not
+        # window size.  Rebuilt from live entries each cycle -> bounded.
+        old_cache = getattr(self, "_wt_cache", {})
+        new_cache = {}
+        annot = getattr(self, "_annot_pred_cache", {})
+        # per-cycle memo confined to the emission path: _build_sds runs only
+        # on the coordinator (or the sole pusher in callback mode)
+        self._annot_pred_cache = annot
+        for cfg in self.window_configs:
+            triples: List[WindowedTriple] = []
+            for t, event_time in latest.get(cfg.window_iri, []):
+                key = (cfg.window_iri, t, event_time)
+                wt = old_cache.get(key)
+                if wt is None:
+                    s = dec(t.subject)
+                    p = dec(t.predicate)
+                    o = dec(t.object)
+                    if s is None or p is None or o is None:
+                        continue
+                    wt = WindowedTriple(s, p, o, event_time)
+                    pkey = (cfg.window_iri, t.predicate)
+                    pid = annot.get(pkey)
+                    if pid is None:
+                        from kolibrie_tpu_torch.reasoner.cross_window import (
+                            annotate_predicate,
+                        )
+
+                        pid = enc(annotate_predicate(cfg.window_iri, p))
+                        annot[pkey] = pid
+                    # pre-seed the translation memo: ids are already known
+                    wt._enc = (
+                        self.dictionary,
+                        cfg.window_iri,
+                        t.subject,
+                        pid,
+                        t.object,
+                    )
+                new_cache[key] = wt
+                triples.append(wt)
+            sds.windows[cfg.window_iri] = WindowData(cfg.width, triples)
+        self._wt_cache = new_cache
+        if self.cross_window_context is not None:
+            for iri in self.cross_window_context.output_iris:
+                sds.output_iris.add(iri)
+        static_triples = [
+            (s, p, o)
+            for s, p, o in self.static_db.iter_decoded()
+            if s is not None and p is not None and o is not None
+        ]
+        if static_triples:
+            sds.static_graphs["urn:kolibrie:static:"] = static_triples
+        return sds
+
+    def _auto_mode(self, sds) -> str:
+        """Per-cycle mode choice for AUTO: measure churn (window content
+        unseen last cycle) against the crossover threshold.  A naive cycle
+        clears the incremental state; re-entering incremental from empty
+        state pays one full provenance recompute (semantically identical
+        to naive — the agreement tests start incremental from empty) and
+        then resumes cheap maintenance.
+
+        Cost note: the snapshot walk is O(window contents) per cycle —
+        the same order as ``_build_sds``'s unconditional SDS rebuild that
+        every mode already pays; incremental's savings are in the
+        REASONING, which dominates both."""
+        # identity EXCLUDES event_time: a re-observed triple with a newer
+        # timestamp is an expiry improvement, which incremental maintenance
+        # handles cheaply — only genuinely new content counts as churn
+        cur = frozenset(
+            (iri, wt.subject, wt.predicate, wt.object)
+            for iri, wd in sds.windows.items()
+            for wt in wd.triples
+        )
+        with self._cw_lock:
+            prev = self._auto_prev_alive
+            self._auto_prev_alive = cur
+        if prev is None or not cur:
+            return CrossWindowReasoningMode.INCREMENTAL
+        churn = len(cur - prev) / len(cur)
+        return (
+            CrossWindowReasoningMode.INCREMENTAL
+            if churn <= _AUTO_MAX_CHURN
+            else CrossWindowReasoningMode.NAIVE
+        )
+
+    def _emit_cross_window(self, ts: int) -> None:
+        """SDS+ cycle + per-window plans over derived buckets
+        (emit_cross_window_results, rsp_engine.rs:1059-1112)."""
+        sds = self._build_sds()
+        mode = self.cross_window_mode
+        if mode == CrossWindowReasoningMode.AUTO:
+            mode = self._auto_mode(sds)
+        if mode == CrossWindowReasoningMode.INCREMENTAL:
+            # checkpoint_state() snapshots _sds_plus_state under _cw_lock
+            # from pusher threads; read and publish under the same lock so
+            # a checkpoint never sees a half-written cycle
+            with self._cw_lock:
+                prev_state = self._sds_plus_state
+            new_state = incremental_sds_plus(
+                self.cross_window_rules, sds, prev_state, self.dictionary, ts,
+                device=self.r2r.db.device,
+            )
+            with self._cw_lock:
+                self._sds_plus_state = new_state
+            buckets = sds_with_expiry_to_external(
+                new_state, self.dictionary, all_component_iris(sds)
+            )
+        else:
+            with self._cw_lock:
+                self._sds_plus_state = {}  # stale for later incremental cycles
+            buckets = naive_sds_plus(
+                self.cross_window_rules, sds, self.dictionary, ts,
+                device=self.r2r.db.device,
+            )
+        materialized: Dict[str, List[Dict[str, str]]] = {}
+        for cfg in self.window_configs:
+            db = SparqlDatabase(device=self.r2r.db.device)
+            db.dictionary = self.dictionary
+            db.quoted = self.r2r.db.quoted
+            for t in buckets.get(cfg.window_iri, []):
+                db.add_triple(t)
+            table = eval_select_to_table(db, cfg.query)
+            header = table_header(table, cfg.query)
+            rows = format_results(db, table, cfg.query)
+            materialized[cfg.window_iri] = [dict(zip(header, row)) for row in rows]
+        self._emit(materialized, ts)
+
     # -------------------------------------------------- preemption/restart
 
     def checkpoint_state(self) -> bytes:
         """Serialize the engine's RESUMABLE state in the reference's format
         (version 2): per-window S2R operator state (t_0, app_time,
-        open-window contents) and the R2S stream-operator memory
-        (``last_result`` — what ISTREAM/DSTREAM diff against).  The
-        reference's cross-window fields (SDS+ expiry state, latest raw
-        window contents) are written empty.  NOT captured (configuration,
+        open-window contents), the R2S stream-operator memory
+        (``last_result`` — what ISTREAM/DSTREAM diff against), the
+        cross-window SDS+ expiry state, and the coordinator's latest raw
+        window contents.  NOT captured (configuration,
         re-supplied when the engine is rebuilt): queries, rules, static
         data, sync policy, and the R2R store — window materializations are
         recomputed at the next firing from the restored window contents.
 
         The blob is JSON (``_ckpt_encode``), NOT pickle: unpickling
         untrusted bytes is arbitrary code execution.  Callers must quiesce
-        event pushes for the duration."""
+        event pushes for the duration; ``_cw_lock`` covers only the
+        cross-window state."""
         import json
 
         with self._cw_lock:
@@ -573,8 +811,14 @@ class RSPEngine:
                     for r in self.windows
                 ],
                 "r2s_last": [_ckpt_encode(x) for x in self.r2s.last_result],
-                "sds_plus": [],
-                "latest_contents": {},
+                "sds_plus": [
+                    [_ckpt_encode(k), _ckpt_encode(v)]
+                    for k, v in self._sds_plus_state.items()
+                ],
+                "latest_contents": {
+                    k: [[_ckpt_encode(t), ts] for t, ts in v]
+                    for k, v in self._latest_contents.items()
+                },
             }
         return json.dumps(state).encode("utf-8")
 
@@ -583,8 +827,7 @@ class RSPEngine:
         the reference's) into THIS engine (built with the same window
         configs / queries / rules).  Events added afterwards continue the
         stream exactly where the snapshot left off.  Safe on untrusted
-        input (pure JSON, no pickle).  A snapshot carrying cross-window
-        state raises :class:`NotImplementedError`."""
+        input (pure JSON, no pickle)."""
         import json
 
         from kolibrie_tpu_torch.rsp.s2r import Window
@@ -594,8 +837,6 @@ class RSPEngine:
             raise ValueError(f"unknown checkpoint version {state.get('version')!r}")
         if len(state["windows"]) != len(self.windows):
             raise ValueError("checkpoint window count != engine window count")
-        if state["sds_plus"] or state["latest_contents"]:
-            raise NotImplementedError("cross-window checkpoint state " + _PROVENANCE_SLICE)
         with self._cw_lock:
             for r, ws in zip(self.windows, state["windows"]):
                 win = r.window
@@ -612,6 +853,17 @@ class RSPEngine:
             self.r2s.last_result = {
                 _ckpt_decode(x) for x in state["r2s_last"]
             }
+            self._sds_plus_state = {
+                _ckpt_decode(k): _ckpt_decode(v)
+                for k, v in state["sds_plus"]
+            }
+            self._latest_contents = {
+                k: [(_ckpt_decode(t), ts) for t, ts in v]
+                for k, v in state["latest_contents"].items()
+            }
+            # AUTO churn baseline is post-checkpoint transient state — a
+            # stale baseline would mis-classify the first restored cycle
+            self._auto_prev_alive = None
 
     # ----------------------------------------------------------------- misc
 

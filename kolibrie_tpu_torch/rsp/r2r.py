@@ -12,7 +12,8 @@ Unlike the reference, :class:`DeviceR2R` never reruns a firing on the host
 after a device failure: a capacity or backend error propagates.  Only rule
 sets the fixpoint cannot lower (``Unsupported``) take the host closure, as
 in the reference, and ``_device_ok`` turns False when they do.
-``IncrementalR2R`` (expiration provenance) comes with the provenance slice.
+:class:`IncrementalR2R` carries the closure across firings as expiration
+provenance and seeds each firing's tagged fixpoint with the delta only.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ class SimpleR2R(R2ROperator):
         if syntax in ("ntriples", "nt"):
             return self.db.parse_ntriples(data)
         if syntax in ("rdfxml", "rdf/xml", "xml", "rdf"):
-            raise NotImplementedError("RDF/XML parsing is not ported to kolibrie_tpu_torch")
+            return self.db.parse_rdf(data)
         if syntax == "n3":
             return self.db.parse_n3(data)
         raise ValueError(f"unknown syntax {syntax!r}")
@@ -353,3 +354,222 @@ def _window_maintain_impl(fs, fp, fo, n, rs, rp, ro, n_rem, as_, ap_, ao_, n_add
         buf.index_put_((pos,), a)
         out.append(buf[:cap])
     return tuple(out)
+
+
+class IncrementalR2R(SimpleR2R):
+    """Delta-incremental per-firing reasoning via expiration provenance.
+
+    Instead of recomputing the window closure from scratch every firing
+    (``SimpleR2R.materialize``), the closure state — every fact tagged with
+    its expiry timestamp (⊕ = max over derivations, ⊗ = min over premises,
+    ``reasoner/provenance.py::ExpirationProvenance``) — is CARRIED across
+    firings, and each firing runs the explicit-delta provenance semi-naive
+    entry (``provenance_seminaive.semi_naive_with_initial_tags_and_delta``,
+    parity ``provenance_semi_naive.rs:271-294``) seeded with ONLY the
+    facts that arrived or improved since the previous firing.  Evictions
+    cost nothing: a derived fact dies when its shortest-lived premise does,
+    which the expiry tag already records.
+
+    Eviction exactness: the per-window content is diffed against the
+    previous firing (``feed_window``), and the prune clock ``_now``
+    advances to the max expiry among evicted base facts.  For sliding
+    windows eviction is strictly by age, so every alive fact's expiry is
+    strictly greater than every evicted fact's — pruning state by
+    ``expiry > _now`` is exactly content-diff eviction, including for
+    derived facts.
+
+    The driver feeds full window contents via :meth:`feed_window` (dict
+    max-merge makes re-fed overlapping items O(1) no-ops) and fires
+    :meth:`materialize_incremental`.  The legacy add/remove/materialize
+    surface still works but permanently drops to the SimpleR2R full
+    recompute (the two content-accounting models cannot be mixed).  On
+    the CUDA card the delta closure auto-routes to the device provenance
+    fixpoint (``device_provenance.infer_provenance_device``) from
+    ``AUTO_MIN_FACTS`` facts, so incremental and device-resident execution
+    compose; the closure's reasoner runs on ``db.device``.
+
+    Exactness domain: ONE window.  With several windows of differing
+    widths the single prune clock can run ahead of a quiet window (whose
+    stale-but-unfired contents the host path would keep serving), so the
+    engine only selects this class for single-window queries; multi-window
+    incremental reasoning is the cross-window SDS+ coordinator's job
+    (``reasoner/cross_window.py``), which carries per-window expiries.
+    """
+
+    def __init__(self, db: Optional[SparqlDatabase] = None, device: DeviceLike = None):
+        super().__init__(db, device)
+        self._buckets: Dict[str, Dict[tuple, int]] = {}  # window -> key -> expiry
+        self._delta: Dict[tuple, int] = {}  # pending delta (max-merged)
+        self._now: int = 0  # monotone prune clock
+        self._state = None  # (s, p, o, expiry) sorted dedup'd closure columns
+        self._tags: Dict[tuple, int] = {}  # closure expiry map (alive)
+        self._derived_in_db: set = set()
+        self._legacy = False  # add()/remove() used -> SimpleR2R semantics
+
+    # -------------------------------------------------- legacy surface
+
+    def add(self, item) -> None:
+        self._legacy = True
+        super().add(item)
+
+    def remove(self, item) -> None:
+        self._legacy = True
+        super().remove(item)
+
+    def materialize(self) -> List[Triple]:
+        self._legacy = True
+        # hand db bookkeeping back to the full-recompute path
+        for k in self._derived_in_db:
+            self.db.delete_triple(Triple(*k))
+        self._derived_in_db = set()
+        self._state = None
+        self._tags = {}
+        return super().materialize()
+
+    # -------------------------------------------------- incremental path
+
+    def feed_window(self, window_iri: str, width: int, items) -> None:
+        """Reconcile one window's full content (``(item, event_ts)`` pairs)
+        against the previous firing: new/improved facts join the pending
+        delta, vanished facts advance the prune clock and leave the db.
+
+        Both the adds and the eviction deletes are buffered store
+        mutations — disjoint delete+insert traffic (the window-slide
+        shape) stays buffered and lands as ONE incremental delta at the
+        next compaction, leaving cached device plans and sort orders
+        intact (see ``docs/STORE.md``)."""
+        bucket = self._buckets.setdefault(window_iri, {})
+        seen = set()
+        for item, ets in items:
+            t = self._to_triple(item)
+            k = tuple(t)
+            seen.add(k)
+            e = int(ets) + int(width)
+            old = bucket.get(k)
+            if old is None:
+                self.db.add_triple(t)
+            if old is None or e > old:
+                bucket[k] = e
+                if e > self._delta.get(k, 0):
+                    self._delta[k] = e
+        evicted = [k for k in bucket if k not in seen]
+        for k in evicted:
+            e = bucket.pop(k)
+            if e > self._now:
+                self._now = e
+            # a triple shared with another window's bucket stays in the db
+            if not any(k in b for b in self._buckets.values()):
+                self.db.delete_triple(Triple(*k))
+
+    def materialize_incremental(self) -> List[Triple]:
+        """Delta-seeded closure + db sync of the derived actives."""
+        if self._legacy:
+            return self.materialize()
+        from kolibrie_tpu_torch.reasoner.cross_window import (
+            _OverlayTags,
+            _dedup_max_expiry,
+            _lookup_expiry,
+        )
+        from kolibrie_tpu_torch.reasoner.provenance import ExpirationProvenance
+        from kolibrie_tpu_torch.reasoner.provenance_seminaive import (
+            semi_naive_with_initial_tags_and_delta,
+        )
+        from kolibrie_tpu_torch.reasoner.tag_store import TagStore
+
+        if not self.rules:
+            self._delta.clear()
+            return []
+        now = np.uint64(self._now)
+        if self._state is None:
+            # (re)build: every alive base fact is the delta
+            self._delta = {}
+            for bucket in self._buckets.values():
+                for k, e in bucket.items():
+                    if e > self._delta.get(k, 0):
+                        self._delta[k] = e
+            self._tags = {}
+            os_ = op_ = oo_ = np.empty(0, np.uint32)
+            oexp = np.empty(0, np.uint64)
+        else:
+            os_, op_, oo_, oexp = self._state
+            alive = oexp > now
+            os_, op_, oo_, oexp = os_[alive], op_[alive], oo_[alive], oexp[alive]
+
+        if self._delta:
+            items = list(self._delta.items())
+            cs = np.fromiter((k[0] for k, _ in items), np.uint32, len(items))
+            cp = np.fromiter((k[1] for k, _ in items), np.uint32, len(items))
+            co = np.fromiter((k[2] for k, _ in items), np.uint32, len(items))
+            cexp = np.fromiter((e for _, e in items), np.uint64, len(items))
+            found, old_e = _lookup_expiry(os_, op_, oo_, oexp, cs, cp, co)
+            is_new = ~found | (cexp > old_e)
+            ds, dp, do_ = cs[is_new], cp[is_new], co[is_new]
+            dexp = cexp[is_new]
+        else:
+            ds = dp = do_ = np.empty(0, np.uint32)
+            dexp = np.empty(0, np.uint64)
+        self._delta = {}
+
+        prov = ExpirationProvenance()
+        overlay = _OverlayTags([self._tags])
+        derived: List[Triple] = []
+        if len(ds) or len(os_):
+            kg = Reasoner(self.db.dictionary, device=self.db.device)
+            kg.quoted = self.db.quoted
+            kg.facts.add_batch(
+                np.concatenate([os_, ds]),
+                np.concatenate([op_, dp]),
+                np.concatenate([oo_, do_]),
+            )
+            for rule in self.rules:
+                kg.add_rule(rule)
+            delta_keys = set()
+            for ks, kp, ko, e in zip(
+                ds.tolist(), dp.tolist(), do_.tolist(), dexp.tolist()
+            ):
+                key = (ks, kp, ko)
+                old = overlay.get(key)
+                overlay[key] = e if old is None else max(old, int(e))
+                delta_keys.add(key)
+            tag_store = TagStore(prov)
+            tag_store.tags = overlay
+            if delta_keys:
+                semi_naive_with_initial_tags_and_delta(
+                    kg, prov, tag_store, delta_keys
+                )
+
+        # merge + prune the carried state (O(state) dict/ndarray carry)
+        new_tags: Dict[tuple, int] = {
+            k: e for k, e in self._tags.items() if e > self._now
+        }
+        t_s = np.empty(len(overlay), np.uint32)
+        t_p = np.empty(len(overlay), np.uint32)
+        t_o = np.empty(len(overlay), np.uint32)
+        t_e = np.empty(len(overlay), np.uint64)
+        for i, (k, e) in enumerate(overlay.items()):
+            new_tags[k] = max(e, new_tags.get(k, 0))
+            t_s[i], t_p[i], t_o[i] = k
+            t_e[i] = e
+        self._tags = new_tags
+        self._state = _dedup_max_expiry(
+            np.concatenate([os_, t_s]),
+            np.concatenate([op_, t_p]),
+            np.concatenate([oo_, t_o]),
+            np.concatenate([oexp, t_e]),
+        )
+
+        # db sync: derived actives = alive closure minus the base contents
+        base_keys = set()
+        for bucket in self._buckets.values():
+            base_keys |= bucket.keys()
+        derived_now = {
+            k
+            for k, e in self._tags.items()
+            if e > self._now and k not in base_keys
+        }
+        for k in self._derived_in_db - derived_now:
+            self.db.delete_triple(Triple(*k))
+        for k in derived_now - self._derived_in_db:
+            self.db.add_triple(Triple(*k))
+        self._derived_in_db = derived_now
+        return [Triple(*k) for k in sorted(derived_now)]

@@ -206,9 +206,10 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
 
 
 def test_unported_rsp_and_mqo_paths_raise():
-    """Shared-prefix MQO, cross-window SDS+ reasoning and the incremental
-    R2R are later slices: asking for them raises NotImplementedError (in
-    this process the JAX package is loaded too, which the port ignores)."""
+    """Shared-prefix MQO is a later slice: asking for it raises
+    NotImplementedError.  Cross-window SDS+ reasoning and the incremental
+    R2R no longer raise: they answer as the JAX package does (in this
+    process the JAX package is loaded too, which the port ignores)."""
     import pytest
 
     import kolibrie_tpu_torch as port
@@ -223,13 +224,30 @@ def test_unported_rsp_and_mqo_paths_raise():
                 with mqo.standing_scope(db, "http://e/w"):
                     pass
     assert mqo.mqo_mode() == "off"
-    q = ("REGISTER RSTREAM <http://o> AS SELECT ?a FROM NAMED WINDOW <http://e/w/> "
-         "ON <http://e/s> [RANGE 4 STEP 2] WHERE { WINDOW <http://e/w/> { ?a <http://e/p> ?b } }")
-    with pytest.raises(NotImplementedError, match="provenance"):
-        port.RSPBuilder(q, device="cpu").set_cross_window_rules(
-            "@prefix w: <http://e/w/> . { ?a w:p ?b . } => { ?a w:q ?b . } ."
-        ).build()
-    with pytest.raises(NotImplementedError, match="provenance"):
-        port.RSPBuilder(q, device="cpu").set_r2r_mode("incremental").build()
+    # cross-window SDS+ and the incremental R2R are ported: both packages'
+    # engines derive the same rows on the same stream
+    from kolibrie_tpu.rsp.builder import RSPBuilder as RefBuilder
+    from kolibrie_tpu.rsp.s2r import WindowTriple as RefWT
+
+    q = ("REGISTER RSTREAM <http://o> AS SELECT ?a ?b FROM NAMED WINDOW <http://e/w/> "
+         "ON <http://e/s> [RANGE 4 STEP 2] WHERE { WINDOW <http://e/w/> { ?a <q> ?b } }")
+    rules = "@prefix w: <http://e/w/> . { ?a w:p ?b . } => { ?a w:q ?b . } ."
+    q2 = ("REGISTER RSTREAM <http://o> AS SELECT ?a ?c FROM NAMED WINDOW <http://e/w> "
+          "ON <http://e/s> [RANGE 4 STEP 2] WHERE { WINDOW <http://e/w> { ?a <http://e/r> ?c } }")
+    rules2 = ("@prefix e: <http://e/> . { ?a e:p ?b . ?b e:p ?c . } => { ?a e:r ?c . } .")
+    runs = {}
+    for name, builder, wt in (("ref", RefBuilder, RefWT),
+                              ("port", lambda t: port.RSPBuilder(t, device="cpu"), port.WindowTriple)):
+        out, out2 = [], []
+        e = builder(q).set_cross_window_rules(rules).with_consumer(out.append).build()
+        e2 = builder(q2).add_rules(rules2).set_r2r_mode("incremental").with_consumer(out2.append).build()
+        for ts in range(1, 9):
+            e.add_to_stream("http://e/s", wt(f"n{ts}", "p", f"n{ts + 1}"), ts)
+            e2.add_to_stream("http://e/s", wt(f"<http://e/n{ts}>", "<http://e/p>",
+                                              f"<http://e/n{ts + 1}>"), ts)
+        e.process_single_thread_window_results()
+        runs[name] = (sorted(out), sorted(out2), type(e2.r2r).__name__)
+    assert runs["port"] == runs["ref"]
+    assert runs["port"][0] and runs["port"][1] and runs["port"][2] == "IncrementalR2R"
     with pytest.raises(ValueError):
         port.RSPBuilder(q, device="cpu").set_r2r_mode("tpu").build()

@@ -8,7 +8,8 @@ order may differ) and the traces must be equal.  Covered: RSTREAM, ISTREAM
 and DSTREAM; one window with rules (host and device R2R) and two joined
 windows under the sync policies; a static query; single-thread and
 multi-thread operation; checkpoints (the decoded JSON equal to the
-reference's) and restores across the two packages; the dead-letter path;
+reference's) and restores across the two packages, cross-window state
+included; the dead-letter path;
 and a CPU rehearsal of ``chip_smoke.py`` phase 7 at 2,000 persons.  The
 replayed cases of ``tests/test_rsp.py`` (``TestS2R``, ``TestR2S``,
 ``TestEngineSingleWindow``, ``TestEngineMultiWindow``, ``TestPreemption``,
@@ -490,12 +491,49 @@ def test_checkpoint_restore_mid_stream():
     assert [dict(r)["o"] for r in part1 + part2] == [dict(r)["o"] for b in ref for r in b]
 
 
+CW_QUERY = """PREFIX ex: <http://e/>
+REGISTER RSTREAM <http://out/s> AS
+SELECT ?room ?v
+FROM NAMED WINDOW <http://e/wT/> ON <http://e/tempStream> [RANGE 10 STEP 2]
+FROM NAMED WINDOW <http://e/wH/> ON <http://e/humStream> [RANGE 10 STEP 2]
+WHERE {
+  WINDOW <http://e/wT/> { ?room <alerted> ?v }
+  WINDOW <http://e/wH/> { ?room <humid> ?w }
+}"""
+CW_RULES = """@prefix t: <http://e/wT/> .
+@prefix h: <http://e/wH/> .
+{ ?room t:hot ?v . ?room h:humid ?w . } => { ?room t:alerted ?v . } ."""
+
+
 def test_restore_rejects_cross_window_state():
-    e = build("port", QUERY_SINGLE, sink=[])
-    state = json.loads(e.checkpoint_state())
-    state["latest_contents"] = {"http://e/w": [[["tr", 1, 2, 3], 4]]}
-    with pytest.raises(NotImplementedError, match="provenance"):
-        e.restore_state(json.dumps(state).encode())
+    """A checkpoint carrying cross-window state (the SDS+ expiry map and the
+    latest raw window contents) is no longer rejected: the reference's blob
+    restores into the port's engine and the port's into the reference's,
+    and each continues with the uninterrupted run's rows."""
+    def cw_engine(pkg, sink):
+        return (_builder(pkg, CW_QUERY).set_cross_window_rules(CW_RULES)
+                .set_cross_window_reasoning_mode("incremental").with_consumer(sink.append).build())
+
+    def feed(pkg, engine, ticks):
+        for ts in ticks:
+            engine.add_to_stream("http://e/tempStream", _wt(pkg, "r1", "hot", '"42"'), ts)
+            engine.add_to_stream("http://e/humStream", _wt(pkg, "r1", "humid", '"x"'), ts)
+        engine.process_single_thread_window_results()
+
+    full: list = []
+    feed("ref", cw_engine("ref", full), range(1, 6))
+    assert full
+    for first, second in (("ref", "port"), ("port", "ref")):
+        part1: list = []
+        e1 = cw_engine(first, part1)
+        feed(first, e1, (1, 2))
+        state = json.loads(e1.checkpoint_state())
+        assert state["sds_plus"] and state["latest_contents"]
+        part2: list = []
+        e2 = cw_engine(second, part2)
+        e2.restore_state(e1.checkpoint_state())
+        feed(second, e2, (3, 4, 5))
+        assert [dict(r)["v"] for r in part1 + part2] == [dict(r)["v"] for r in full]
 
 
 # ------------------------------------------------------------ supervision
