@@ -49,10 +49,16 @@ profiled; the AUTO threshold's sweep (``profile_churn_sweep``: naive
 against incremental at update ratios 1-50%); and phase 11 (``profile_load``:
 serialize, load, upload, queries, checkpoint, restore, round trips, peak
 device memory).
+Then phase 12 (``profile_ml``): each TRAIN and ML.PREDICT of 12b-12d split
+into the training-table or INPUT SELECT, the feature build, the MLP's
+forward, backward and update (synchronised), the per-sample closures, the
+WMC gradients and the weight reassignment; three of them once more under
+``torch.profiler`` (busy share: over the timed run's wall); and the SDD
+path's per-sample closure over the premise facts against the whole store.
 Prints one JSON object per query, one for the closure, one for the RSP
 stream, one per statement, one per phase-9 run, one per crossover
 point, one per phase-10 point, cycle list and sweep ratio, one for phase
-11, the card's name and
+11, one per phase-12 statement, the card's name and
 power limit, and last
 one JSON object with every breakdown.  It checks nothing: ``chip_smoke.py``
 does.
@@ -648,6 +654,158 @@ def profile_load(dev, lubm, emp) -> dict:
     return rec
 
 
+ML_WHOLE_STORE_SAMPLES = 200  # measurements of the whole-store closure comparison
+
+
+class MlTimers:
+    """Host-clock ms inside TRAIN's and ML.PREDICT's steps, ``{step: ms}``:
+    the training-table or INPUT SELECT, the feature build, the MLP's
+    forward, backward and update (synchronised on the card), the per-sample
+    closures, the WMC gradients and the weight reassignment."""
+
+    def __init__(self, sync):
+        self.sync, self.ms, self.calls = sync, {}, {}
+
+    def _add(self, key, t):
+        self.ms[key] = self.ms.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def timed(self, fn, key: str, synced: bool):
+        def wrapped(*a, **k):
+            if synced:
+                self.sync()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if synced:
+                    self.sync()
+                self._add(key, t)
+
+        return wrapped
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.ml import runtime as R
+        from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
+        from kolibrie_tpu_torch.native.sdd_native import NativeSddManager
+        from kolibrie_tpu_torch.reasoner.sdd import SddManager
+
+        specs = [
+            (R, "eval_select_to_table", "select", True),
+            (R, "eval_where", "select", True),
+            (R, "build_feature_vec", "features", False),
+            (MlpNeuralPredicate, "predict", "forward", True),
+            (MlpNeuralPredicate, "apply_gradients", "update", True),
+            (R, "infer_new_facts_with_sdd_seed_specs", "closures", False),
+            (R, "wmc_gradient_by_seed", "wmc_gradients", False),
+            (SddManager, "set_weight", "reassign_weights", False),
+            (NativeSddManager, "set_weight", "reassign_weights", False),
+        ]
+        self._saved = [(o, a, getattr(o, a)) for o, a, _k, _s in specs]
+        self._saved.append((MlpNeuralPredicate, "forward_with_vjp",
+                            MlpNeuralPredicate.forward_with_vjp))
+        for (owner, attr, fn), (_o, _a, key, synced) in zip(self._saved, specs):
+            setattr(owner, attr, self.timed(fn, key, synced))
+        fwd = self._saved[-1][2]
+
+        def forward_with_vjp(model, x):
+            self.sync()
+            t = time.perf_counter()
+            probs, backward = fwd(model, x)
+            self.sync()
+            self._add("forward", t)
+            return probs, self.timed(backward, "backward", True)
+
+        MlpNeuralPredicate.forward_with_vjp = forward_with_vjp
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+        return False
+
+
+def profile_ml_statement(db, label: str, q: str) -> dict:
+    """One statement under :class:`MlTimers`: its wall (synchronised), each
+    step's ms and calls, and the rest of the wall outside them."""
+    import torch
+
+    from kolibrie_tpu_torch import execute_query_volcano
+
+    with MlTimers(torch.cuda.synchronize) as timers:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        execute_query_volcano(q, db)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rec = {"ml": label, "wall_ms": wall, "steps_ms": timers.ms, "calls": timers.calls,
+           "rest_ms": wall - sum(timers.ms.values())}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def profile_ml(dev, lubm) -> list:
+    """Phase 12's statements (``chip_smoke.py`` 12b-12d) on clones of
+    ``lubm``, each split by :class:`MlTimers`; the two TRAINs and the digit
+    ML.PREDICT once more under ``torch.profiler`` (top device operations;
+    busy share = device busy ms over the timed run's wall), each before the
+    predictions that would make its seed facts pre-exist; then one epoch of
+    the SDD TRAIN at ``ML_WHOLE_STORE_SAMPLES`` measurements with its
+    reasoner over the premise facts and over the whole store (the
+    reference's), for the per-sample closure's cost."""
+    import tempfile
+
+    import chip_smoke as CS
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.ml import runtime as R
+    from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
+
+    def profiled(label, db, q, timed):
+        rec = device_profile(lambda: execute_query_volcano(q, db))
+        rec.update({"ml": label + " (profiled)",
+                    "busy_share": rec["device_busy_ms"] / timed["wall_ms"]})
+        print(json.dumps(rec), flush=True)
+        return rec
+
+    dbs = {"digit": lubm.clone(), "hot": lubm.clone()}
+    dbs["digit"].parse_ntriples(CS.ml_digit_ntriples(CS.ML_SAMPLES, CS.ML_SEED))
+    dbs["hot"].parse_ntriples(CS.ml_sensor_ntriples(CS.ML_MEASUREMENTS, CS.ML_SEED))
+    for db in dbs.values():
+        db.store.device_segment("spo")
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        digit = CS.ML_DIGIT_STATEMENT.replace("<save>", os.path.join(tmp, "digit.json"))
+        dbs["digit"].trained_models["digit_model"] = MlpNeuralPredicate(
+            2, [16], "exclusive", ["0", "1"], seed=CS.ML_SEED, device=dev)
+        out.append(profile_ml_statement(dbs["digit"], "train_digit", digit))
+        out.append(profiled("train_digit", dbs["digit"], digit, out[-1]))
+        execute_query_volcano(CS.ML_ALERT_RULE, dbs["hot"])
+        dbs["hot"].trained_models["hot2"] = MlpNeuralPredicate(
+            1, [8], "binary", seed=CS.ML_SEED + 1, device=dev)
+        out.append(profile_ml_statement(dbs["hot"], "train_hot", CS.ML_HOT_STATEMENT))
+        out.append(profiled("train_hot", dbs["hot"], CS.ML_HOT_STATEMENT, out[-1]))
+        for name in ("digit", "hot"):
+            out.append(profile_ml_statement(dbs[name], f"ml_predict_{name}", CS.ML_PREDICT[name]))
+        out.append(profiled("ml_predict_digit", dbs["digit"], CS.ML_PREDICT["digit"], out[-2]))
+    del dbs
+    small = lubm.clone()
+    small.parse_ntriples(CS.ml_sensor_ntriples(ML_WHOLE_STORE_SAMPLES, CS.ML_SEED))
+    execute_query_volcano(CS.ML_ALERT_RULE, small)
+    one_epoch = CS.ML_HOT_STATEMENT.replace("EPOCHS 5", "EPOCHS 1")
+    saved = R._premise_facts
+    for label, premise in (("premise_facts", saved), ("whole_store", lambda store, rules: store)):
+        small.trained_models["hot2"] = MlpNeuralPredicate(1, [8], "binary", seed=1, device=dev)
+        R._premise_facts = premise
+        try:
+            rec = profile_ml_statement(small, f"sdd_one_epoch_{label}", one_epoch)
+        finally:
+            R._premise_facts = saved
+        rec["closure_ms_per_sample"] = rec["steps_ms"]["closures"] / ML_WHOLE_STORE_SAMPLES
+        print(json.dumps({"ml": label, "samples": ML_WHOLE_STORE_SAMPLES,
+                          "closure_ms_per_sample": rec["closure_ms_per_sample"]}), flush=True)
+        out.append(rec)
+    return out
+
 def main() -> int:
     import torch
 
@@ -709,11 +867,12 @@ def main() -> int:
     churn = profile_churn_sweep(dev)
     emp = next(db for name, db, _q, _w in queries if name == "employee")
     load = profile_load(dev, lubm, emp)
+    ml = profile_ml(dev, lubm)
     print(card)
     print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp,
                       "statements": statements, "provenance": provenance,
                       "prov_crossover": crossover, "cross_window": cross_window,
-                      "churn_sweep": churn, "load": load}))
+                      "churn_sweep": churn, "load": load, "ml": ml}))
     return 0
 
 

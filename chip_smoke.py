@@ -160,8 +160,30 @@ result line):
             ``to_turtle`` and through ``to_rdfxml`` + ``parse_rdf``; a
             ``QueryBuilder`` query over LUBM-1000 equals its SPARQL twin.
             Each step timed; peak device memory.
+12. neurosymbolic ML — 12a: the digit model (``HIDDEN [16]``, exclusive
+            over "0"/"1") and the hot model (``HIDDEN [8]``, binary) on
+            4,096-row batches: forward, VJP and 50 Adam steps on the card
+            against the port's CPU run from the same weights, TF32 matmuls
+            asserted off.  Then two clones of phase 4's LUBM-1000 database:
+            12c, 100,000 digit samples (``tests/test_ml.py``'s graph, three
+            triples each) and the digit TRAIN statement (EPOCHS 3,
+            BATCH_SIZE 256) on the no-rules fast path; 12b, 20,000 sensor
+            measurements, ``tests/test_ml.py``'s RULE and TRAIN (``HIDDEN
+            [8]``, EPOCHS 5, BATCH_SIZE 64, bce) through the SDD proof path:
+            20,000 closures in all, p(85) > 0.8 and p(45) < 0.2; 12d,
+            ML.PREDICT over every sample and measurement, the SPARQL-star
+            read of ``prob:value``, a SELECT naming ``ex:predictedDigit``
+            (the materialisation pre-pass) and a RULE whose body names
+            ``ex:predictedHot``.  The port's CPU run repeats 12b and 12c from
+            the same initial weights (epoch losses and weights within the
+            stated drift) and 12d with the card's trained weights through
+            ``save`` / ``load`` (rows equal but for rows within
+            ``ML_PROB_TOL`` of the decision boundary, which are counted).
+            Each statement's wall and launches; the ML statements must
+            launch the merge path.  Counters zeroed just before the card's
+            statements, read just after.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7-11), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-12), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -178,6 +200,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2989,6 +3012,427 @@ def recorder_install(captured: dict):
 
 
 
+# ------------------------------------------------- phase 12: neurosymbolic ML
+
+ML_NS = "http://e/"
+ML_SAMPLES = 100_000  # 12c: digit samples, three triples each
+ML_MEASUREMENTS = 20_000  # 12b: ten times tests/test_ml.py's TrainerScale, two triples each
+ML_MLP_ROWS = 4_096  # 12a: rows of each batch
+ML_ADAM_STEPS = 50
+ML_SEED = 13
+# card against the port's CPU run, f32 throughout (TF32 off; cuBLAS and the
+# CPU sum in other orders): the same weights give probabilities within
+# ML_PROB_TOL and gradients within ML_GRAD_TOL of the array's largest; from
+# the same initial weights, the weights after training within ML_TRAIN_TOL
+# and each epoch's loss within ML_LOSS_RTOL relative.  The H100 measured
+# 1.2e-7, 3.1e-6, 7.2e-7 and 8.7e-8 (after 50 Adam steps, 3 epochs of 391
+# batches and 5 of 313): each bound is 30-140 times the measured drift
+ML_PROB_TOL = 1e-5
+ML_GRAD_TOL = 1e-4
+ML_TRAIN_TOL = 1e-4
+ML_LOSS_RTOL = 1e-5
+XSD_TRUE = '"true"^^<http://www.w3.org/2001/XMLSchema#boolean>'
+ML_DIGIT_STATEMENT = """PREFIX ex: <http://e/>
+MODEL "digit_model" {
+    ARCH MLP { HIDDEN [16] }
+    OUTPUT EXCLUSIVE { "0", "1" }
+}
+NEURAL RELATION ex:predictedDigit USING MODEL "digit_model" {
+    INPUT {
+        ?sample ex:x0 ?x0 .
+        ?sample ex:x1 ?x1 .
+    }
+    FEATURES { ?x0, ?x1 }
+}
+TRAIN NEURAL RELATION ex:predictedDigit {
+    DATA { ?sample ex:label ?label . }
+    LABEL ?label
+    TARGET { ?sample ex:predictedDigit ?label }
+    LOSS cross_entropy
+    OPTIMIZER adam
+    LEARNING_RATE 0.05
+    EPOCHS 3
+    BATCH_SIZE 256
+    SAVE_TO "<save>"
+}"""
+ML_ALERT_RULE = ("PREFIX ex: <http://e/>\nRULE :alertRule :- CONSTRUCT { ?m ex:alert \"yes\" . } "
+                 f"WHERE {{ ?m ex:predictedHot {XSD_TRUE} . }}")
+ML_HOT_STATEMENT = """PREFIX ex: <http://e/>
+MODEL "hot2" { ARCH MLP { HIDDEN [8] } OUTPUT BINARY }
+NEURAL RELATION ex:predictedHot USING MODEL "hot2" {
+    INPUT { ?m ex:temp ?t . }
+    FEATURES { ?t }
+}
+TRAIN NEURAL RELATION ex:predictedHot {
+    DATA { ?m ex:isHot ?hot . }
+    LABEL ?hot
+    TARGET { ?m ex:predictedHot ?l }
+    LOSS bce
+    EPOCHS 5
+    BATCH_SIZE 64
+    LEARNING_RATE 0.1
+}"""
+ML_PREDICT = {
+    "digit": """PREFIX ex: <http://e/>
+ML.PREDICT(MODEL "digit_model",
+    INPUT { SELECT ?sample ?x0 ?x1 WHERE { ?sample ex:x0 ?x0 . ?sample ex:x1 ?x1 . } },
+    OUTPUT ?digit)""",
+    "hot": """PREFIX ex: <http://e/>
+ML.PREDICT(MODEL "hot2", INPUT { SELECT ?m ?t WHERE { ?m ex:temp ?t . } }, OUTPUT ?hot)""",
+}
+ML_STAR = {
+    "digit": "PREFIX ex: <http://e/> PREFIX prob: <http://kolibrie.tpu/prob#> "
+             "SELECT ?s ?d ?p WHERE { << ?s ex:predictedDigit ?d >> prob:value ?p }",
+    "hot": "PREFIX ex: <http://e/> PREFIX prob: <http://kolibrie.tpu/prob#> "
+           "SELECT ?s ?d ?p WHERE { << ?s ex:predictedHot ?d >> prob:value ?p }",
+}
+ML_DIGIT_SELECT = "PREFIX ex: <http://e/> SELECT ?s ?d WHERE { ?s ex:predictedDigit ?d }"
+ML_ALARM_RULE = ("PREFIX ex: <http://e/>\nRULE :alarm :- CONSTRUCT { ?m ex:alarm \"on\" . } "
+                 f"WHERE {{ ?m ex:predictedHot {XSD_TRUE} . ?m ex:temp ?t . }}")
+ML_ALARMS = ('PREFIX ex: <http://e/> SELECT (COUNT(?m) AS ?n) WHERE { ?m ex:alarm "on" }')
+
+
+def ml_digit_ntriples(n: int, seed: int) -> str:
+    """``tests/test_ml.py``'s digit graph at ``n`` samples: class 0 near
+    (0.1, 0.9), class 1 near (0.9, 0.1), sigma 0.05, four decimals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    label = np.arange(n) % 2
+    x0 = np.where(label == 0, 0.1, 0.9) + rng.normal(0, 0.05, n)
+    x1 = np.where(label == 0, 0.9, 0.1) + rng.normal(0, 0.05, n)
+    return "".join(
+        f'<{ML_NS}s{i}> <{ML_NS}x0> "{a:.4f}" .\n<{ML_NS}s{i}> <{ML_NS}x1> "{b:.4f}" .\n'
+        f'<{ML_NS}s{i}> <{ML_NS}label> "{c}" .\n'
+        for i, (a, b, c) in enumerate(zip(x0.tolist(), x1.tolist(), label.tolist())))
+
+
+def ml_sensor_ntriples(n: int, seed: int) -> str:
+    """``tests/test_ml.py:240-250``'s sensor graph at ``n`` measurements:
+    hot ones near 80, cold ones near 50, sigma 3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hot = np.arange(n) % 2
+    t = np.where(hot == 1, 80.0, 50.0) + rng.normal(0, 3, n)
+    return "".join(
+        f'<{ML_NS}m{i}> <{ML_NS}temp> "{v:.2f}" .\n'
+        f'<{ML_NS}m{i}> <{ML_NS}isHot> "{"true" if h else "false"}" .\n'
+        for i, (v, h) in enumerate(zip(t.tolist(), hot.tolist())))
+
+
+def mlp_cotangent(probs, y):
+    """The cross-entropy (exclusive) or BCE (binary) cotangent of mean
+    loss over the batch."""
+    import numpy as np
+
+    p = np.clip(np.asarray(probs, np.float64), 1e-7, 1 - 1e-7)
+    if p.ndim == 1:
+        return (-(y / p) + (1 - y) / (1 - p)) / len(p)
+    cot = np.zeros_like(p)
+    cot[np.arange(len(p)), y] = -1.0 / p[np.arange(len(p)), y] / len(p)
+    return cot
+
+
+def near_boundary(probs, tol: float) -> int:
+    """Rows whose decision could flip under a change of ``tol`` in their
+    probabilities: within ``tol`` of 0.5 (binary) or of a tie (exclusive)."""
+    import numpy as np
+
+    p = np.asarray(probs)
+    if p.ndim == 1:
+        return int((np.abs(p - 0.5) <= tol).sum())
+    top = np.sort(p, axis=1)
+    return int((top[:, -1] - top[:, -2] <= 2 * tol).sum())
+
+
+def run_mlp_alone(dev) -> dict:
+    """12a: the digit model (``HIDDEN [16]``, exclusive over "0"/"1") and
+    the hot model (``HIDDEN [8]``, binary) on ``ML_MLP_ROWS``-row batches:
+    forward, VJP and ``ML_ADAM_STEPS`` Adam steps on ``dev`` against the
+    port's CPU run from the same weights."""
+    import numpy as np
+    import torch
+
+    from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
+
+    if dev.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                               or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("12a: TF32 matmuls are on")
+    rng = np.random.default_rng(ML_SEED)
+    out = {}
+    for name, in_dim, hidden, kind, labels in (("digit", 2, [16], "exclusive", ["0", "1"]),
+                                               ("hot", 1, [8], "binary", None)):
+        card = MlpNeuralPredicate(in_dim, hidden, kind, labels, learning_rate=0.05,
+                                  seed=ML_SEED, device=dev)
+        cpu = MlpNeuralPredicate.from_params(card.params_numpy(), kind, labels, 0.05,
+                                             device="cpu")
+        for m in (card, cpu):
+            m.set_normalization(np.full(in_dim, 0.5), np.full(in_dim, 0.3))
+        x = rng.uniform(0, 1, size=(ML_MLP_ROWS, in_dim))
+        y = (x[:, 0] > 0.5).astype(np.int64)
+        yb = y if kind == "exclusive" else y.astype(np.float64)
+        probs, backward = card.forward_with_vjp(x)
+        cprobs, cbackward = cpu.forward_with_vjp(x)
+        prob_err = float(np.abs(probs - cprobs).max())
+        cot = mlp_cotangent(cprobs, yb)
+        grad_err = max(
+            float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+            for gc, cc in zip(backward(cot), cbackward(cot)) for g, c in zip(gc, cc))
+        if prob_err > ML_PROB_TOL or grad_err > ML_GRAD_TOL:
+            raise AssertionError(f"12a {name}: forward {prob_err}, VJP {grad_err} relative")
+        for _step in range(ML_ADAM_STEPS):
+            for m in (card, cpu):
+                p, bw = m.forward_with_vjp(x)
+                m.apply_gradients(bw(mlp_cotangent(p, yb)))
+        drift = max(float(np.abs(a - b).max()) for (aw, ab), (bw_, bb) in
+                    zip(card.params_numpy(), cpu.params_numpy()) for a, b in ((aw, bw_), (ab, bb)))
+        after, cafter = card.predict(x), cpu.predict(x)
+        flips = int((np.asarray(card.predict_labels(x)) != np.asarray(cpu.predict_labels(x))).sum())
+        near = near_boundary(cafter, float(np.abs(after - cafter).max()))
+        if drift > ML_TRAIN_TOL or flips > near:
+            raise AssertionError(f"12a {name}: weights drift {drift} after {ML_ADAM_STEPS} steps, "
+                                 f"{flips} labels flipped ({near} rows near the boundary)")
+        out[name] = {"prob_err": prob_err, "grad_rel_err": grad_err, "drift": drift,
+                     "prob_drift": float(np.abs(after - cafter).max()), "flips": flips,
+                     "near_boundary": near}
+        log(f"12a {name}: forward err {prob_err!r}, VJP err {grad_err!r} (relative), after "
+            f"{ML_ADAM_STEPS} Adam steps weights drift {drift!r}, probabilities "
+            f"{out[name]['prob_drift']!r}, {flips} labels flipped, {near} near the boundary")
+    return out
+
+
+class MlSpy:
+    """Per-sample losses and SDD closures of TRAIN (``ml.runtime``)."""
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.ml import runtime as R
+
+        self.losses, self.closures = [], 0
+        self._saved = (R._loss_grad, R.infer_new_facts_with_sdd_seed_specs)
+        loss, infer = self._saved
+
+        def loss_rec(*a, **k):
+            v = loss(*a, **k)
+            self.losses.append(v[0])
+            return v
+
+        def infer_rec(*a, **k):
+            self.closures += 1
+            return infer(*a, **k)
+
+        R._loss_grad, R.infer_new_facts_with_sdd_seed_specs = loss_rec, infer_rec
+        return self
+
+    def __exit__(self, *exc):
+        from kolibrie_tpu_torch.ml import runtime as R
+
+        R._loss_grad, R.infer_new_facts_with_sdd_seed_specs = self._saved
+        return False
+
+    def epoch_losses(self, epochs: int) -> list:
+        import numpy as np
+
+        return np.asarray(self.losses).reshape(epochs, -1).sum(axis=1).tolist()
+
+
+def ml_statement(dev, db, label: str, q: str, record: dict):
+    """Run one statement, timed (synchronised) with its launch counts."""
+    import torch
+
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows = execute_query_volcano(q, db)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    record[label] = {"ms": ms, "launches": launches}
+    log(f"12 {label} [{dev.type}]: {ms:.1f} ms, launches {launches}")
+    return rows
+
+
+def ml_train(dev, db, label: str, q: str, model, epochs: int, record: dict) -> dict:
+    """TRAIN ``q`` on ``db`` from ``model``'s weights (placed in
+    ``trained_models`` first): per-epoch losses, closures, final weights."""
+    name = re.search(r'USING MODEL "([^"]+)"', q).group(1)
+    db.trained_models[name] = model
+    with MlSpy() as spy:
+        ml_statement(dev, db, label, q, record)
+    trained = db.trained_models[name]
+    return {"losses": spy.epoch_losses(epochs), "closures": spy.closures,
+            "params": trained.params_numpy(), "model": trained}
+
+
+def check_ml_train(label: str, card: dict, cpu: dict, closures: int) -> None:
+    import numpy as np
+
+    drift = max(float(np.abs(a - b).max()) for (aw, ab), (bw, bb) in
+                zip(card["params"], cpu["params"]) for a, b in ((aw, bw), (ab, bb)))
+    loss_err = float(np.max(np.abs(np.subtract(card["losses"], cpu["losses"]))
+                            / np.abs(cpu["losses"])))
+    log(f"12 {label}: epoch losses card {card['losses']}, CPU {cpu['losses']} (relative err "
+        f"{loss_err!r}); weights drift {drift!r}; closures {card['closures']}")
+    if card["closures"] != closures or cpu["closures"] != closures:
+        raise AssertionError(f"12 {label}: closures {card['closures']} / {cpu['closures']}, "
+                             f"expected {closures}")
+    if drift > ML_TRAIN_TOL or loss_err > ML_LOSS_RTOL:
+        raise AssertionError(f"12 {label}: card and CPU differ: weights {drift}, losses {loss_err}")
+
+
+def run_ml_predict(dev, dbs: dict, record: dict) -> dict:
+    """12d on ``dbs`` (``"digit"``: 12c's database, ``"hot"``: 12b's):
+    ML.PREDICT over every sample and measurement, the SPARQL-star read of
+    the probabilities, a SELECT naming ``ex:predictedDigit`` (the
+    materialisation pre-pass), and a RULE whose body names
+    ``ex:predictedHot`` with the count of what it derived."""
+    out = {}
+    for name in ("digit", "hot"):
+        ml_statement(dev, dbs[name], f"ml_predict_{name}", ML_PREDICT[name], record)
+        out[f"star_{name}"] = ml_statement(dev, dbs[name], f"star_{name}", ML_STAR[name], record)
+    out["digit_select"] = ml_statement(dev, dbs["digit"], "select_predicted_digit",
+                                       ML_DIGIT_SELECT, record)
+    ml_statement(dev, dbs["hot"], "rule_predicted_hot", ML_ALARM_RULE, record)
+    out["alarms"] = ml_statement(dev, dbs["hot"], "alarms", ML_ALARMS, record)
+    out["sizes"] = {k: len(db) for k, db in dbs.items()}
+    return out
+
+
+def check_ml_predict(card: dict, cpu: dict) -> dict:
+    """Card rows against the CPU run's, which used the card's weights: equal
+    but for the labels of rows within ``ML_PROB_TOL`` of the decision
+    boundary, probabilities within ``ML_PROB_TOL``.  Returns the counts."""
+    counts = {}
+    if card["sizes"] != cpu["sizes"]:
+        raise AssertionError(f"12d: store sizes {card['sizes']} against {cpu['sizes']}")
+    for name, n in (("digit", ML_SAMPLES), ("hot", ML_MEASUREMENTS)):
+        got = {r[0]: (r[1], float(r[2])) for r in card[f"star_{name}"]}
+        want = {r[0]: (r[1], float(r[2])) for r in cpu[f"star_{name}"]}
+        if len(got) != n or got.keys() != want.keys():
+            raise AssertionError(f"12d {name}: {len(got)} / {len(want)} predictions of {n}")
+        perr = max(abs(got[k][1] - want[k][1]) for k in got)
+        flips = sum(got[k][0] != want[k][0] for k in got)
+        near = sum(abs(want[k][1] - 0.5) <= ML_PROB_TOL for k in got)
+        if perr > ML_PROB_TOL or flips > near:
+            raise AssertionError(f"12d {name}: probabilities differ by {perr}, {flips} labels "
+                                 f"flipped, {near} near the boundary")
+        counts[name] = {"predictions": n, "prob_err": perr, "flips": flips, "near_boundary": near}
+    got, want = sorted_rows(card["digit_select"]), sorted_rows(cpu["digit_select"])
+    differ = len(set(got) ^ set(want))
+    if len(got) != len(want) or differ > 2 * counts["digit"]["near_boundary"]:
+        raise AssertionError(f"12d: the SELECT naming ex:predictedDigit gave {len(got)} rows "
+                             f"against {len(want)}, {differ} differ")
+    if card["alarms"] != cpu["alarms"] or int(card["alarms"][0][0]) != ML_MEASUREMENTS:
+        raise AssertionError(f"12d: alarms {card['alarms']} against {cpu['alarms']}")
+    counts["digit_select_rows"] = len(got)
+    log(f"12d: predictions and rows equal the CPU run's (the card's weights): {counts}")
+    return counts
+
+
+def run_ml_phase(dev, lubm) -> dict:
+    """Phase 12 on ``dev``: 12a, then on two clones of the LUBM database
+    (``lubm``), one with ``ML_SAMPLES`` digit samples and one with
+    ``ML_MEASUREMENTS`` sensor measurements: 12c (TRAIN on the fast path),
+    12b (the RULE, then TRAIN through the SDD path), and 12d.  The port's
+    CPU run repeats 12b and 12c on copies of the databases from the same
+    initial weights, and 12d with the card's trained weights (through
+    ``save`` / ``load``).  Launch counters are zeroed just before the card's
+    statements and read just after."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+    from kolibrie_tpu_torch.reasoner.reasoner import Reasoner
+
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    mlp = run_mlp_alone(dev)
+    t0 = time.perf_counter()
+    dbs = {"digit": lubm.clone(), "hot": lubm.clone()}
+    dbs["digit"].parse_ntriples(ml_digit_ntriples(ML_SAMPLES, ML_SEED))
+    dbs["hot"].parse_ntriples(ml_sensor_ntriples(ML_MEASUREMENTS, ML_SEED))
+    for db in dbs.values():
+        db.store.device_segment("spo")  # the mirror's upload, before the timed statements
+    log(f"12: databases of {len(dbs['digit'])} and {len(dbs['hot'])} triples "
+        f"({time.perf_counter() - t0:.1f} s)")
+    init = {
+        "digit": MlpNeuralPredicate(2, [16], "exclusive", ["0", "1"], seed=ML_SEED, device=dev),
+        "hot": MlpNeuralPredicate(1, [8], "binary", seed=ML_SEED + 1, device=dev),
+    }
+    init_params = {k: m.params_numpy() for k, m in init.items()}
+    record: dict = {}
+    captured: dict = {}
+    tmp = tempfile.TemporaryDirectory()
+    saves = {"digit": os.path.join(tmp.name, "digit.json"), "hot": os.path.join(tmp.name, "hot.json")}
+    K.reset_launches()
+    undo = recorder_install(captured)
+    saved_filter = FX.filter_mask
+    FX.filter_mask = filter_recorder(captured, saved_filter)
+    try:
+        t1 = time.perf_counter()
+        card_c = ml_train(dev, dbs["digit"], "train_digit",
+                          ML_DIGIT_STATEMENT.replace("<save>", saves["digit"]), init["digit"], 3,
+                          record)
+        ml_statement(dev, dbs["hot"], "rule_alert", ML_ALERT_RULE, record)
+        card_b = ml_train(dev, dbs["hot"], "train_hot", ML_HOT_STATEMENT, init["hot"], 5, record)
+        card_b["model"].save(saves["hot"])
+        twins = {k: cpu_twin(db) for k, db in dbs.items()}
+        twins["hot"].rule_map = dict(dbs["hot"].rule_map)
+        t2 = time.perf_counter()
+        card_d = run_ml_predict(dev, dbs, record)
+        t3 = time.perf_counter()
+    finally:
+        undo()
+        FX.filter_mask = saved_filter
+    launches = {k: v for k, v in {**K.LAUNCHES, **K.ENTRY_LAUNCHES}.items() if v}
+    if on_card and not launches.get("merge_path_join"):
+        raise AssertionError(f"12: the ML statements launched no merge-path join: {launches}")
+    hot = card_b["model"].predict(np.array([[85.0], [45.0]]))
+    if not (hot[0] > 0.8 and hot[1] < 0.2):
+        raise AssertionError(f"12b: p(85) {hot[0]}, p(45) {hot[1]}")
+    digit = card_c["model"].predict_labels(np.array([[0.1, 0.9], [0.9, 0.1]]))
+    if digit != ["0", "1"]:
+        raise AssertionError(f"12c: labels {digit} for the class centres")
+    # the port's CPU run: 12c and 12b from the same initial weights
+    rec_cpu: dict = {}
+    cpu_c = ml_train(cpu, twins["digit"], "train_digit",
+                     ML_DIGIT_STATEMENT.replace("<save>", os.path.join(tmp.name, "cpu.json")),
+                     MlpNeuralPredicate.from_params(init_params["digit"], "exclusive", ["0", "1"],
+                                                    device="cpu"), 3, rec_cpu)
+    check_ml_train("12c", card_c, cpu_c, 0)
+    cpu_b = ml_train(cpu, twins["hot"], "train_hot", ML_HOT_STATEMENT,
+                     MlpNeuralPredicate.from_params(init_params["hot"], device="cpu"), 5, rec_cpu)
+    check_ml_train("12b", card_b, cpu_b, ML_MEASUREMENTS)
+    # 12d with the card's weights
+    twins["digit"].trained_models["digit_model"] = MlpNeuralPredicate.load(saves["digit"], cpu)
+    twins["hot"].trained_models["hot2"] = MlpNeuralPredicate.load(saves["hot"], cpu)
+    saved_min = Reasoner._DEVICE_AUTO_MIN_FACTS
+    Reasoner._DEVICE_AUTO_MIN_FACTS = 1 << 62  # the CPU run's RULE: the host strategy
+    try:
+        cpu_d = run_ml_predict(cpu, twins, rec_cpu)
+    finally:
+        Reasoner._DEVICE_AUTO_MIN_FACTS = saved_min
+    counts = check_ml_predict(card_d, cpu_d)
+    tmp.cleanup()
+    t4 = time.perf_counter()
+    log(f"phase 12: {t4 - t_phase:.1f} s (12a {t0 - t_phase:.1f}, card 12b/12c "
+        f"{t2 - t1:.1f}, card 12d {t3 - t2:.1f}, CPU run {t4 - t3:.1f}); launches {launches}")
+    return {"mlp": mlp, "record": record, "cpu_record": rec_cpu, "launches": launches,
+            "captured": captured, "counts": counts,
+            "losses": {"digit": card_c["losses"], "hot": card_b["losses"]}}
+
+
 # ------------------------------------------------------- kernel timing
 
 
@@ -3088,7 +3532,7 @@ def load_parent_kernels(root: str):
 
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
-    prov: dict, cw: dict, load: dict, parent=None,
+    prov: dict, cw: dict, load: dict, ml: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -3097,7 +3541,8 @@ def kernels_at_main_path_shapes(
     closure's merge path, phase 6c for the ops entries, phase 7's device run
     for the RSP path's merge path and filter, phase 10's card runs for the
     cross-window and incremental closures' merge path and filter, phase
-    11's queries after the load for the lex probes.  The merge path's and the
+    11's queries after the load for the lex probes, phase 12's card
+    statements for the ML path's merge path and filter.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -3204,6 +3649,16 @@ def kernels_at_main_path_shapes(
         if name in lc:
             line.append(timed_row(f"{name}[load]", csrc + src, pk + body, l11.get(name, 0),
                                   lc[name][1], fn, plain, nbytes, check))
+    # phase 12: its card statements' launches, at their largest calls
+    mc, l12 = ml["captured"], ml["launches"]
+    line.append(timed_row("merge_path_join[ml]", csrc + "merge_join.cu", pk + "181",
+                          l12.get("merge_path_join", 0), mc["merge_path_join"][1], K.merge_path,
+                          K.merge_path_plain, merge_path_bytes, check_merge_path))
+    if "filter_mask" in mc:
+        fargs = mc["filter_mask"][1]
+        line.append(timed_row("filter_mask[ml]", csrc + "filter_mask.cu", pk + "887",
+                              l12.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                              check_filter, filter_library(fargs)))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -3300,9 +3755,12 @@ def main(argv=None) -> int:
     emp = next(db for name, db, _q, _w in queries if name == "employee")
     load = run_load_phase(dev, main_path, lubm, emp)
 
+    # ---- 12. the neurosymbolic ML layer
+    ml = run_ml_phase(dev, lubm)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
-        main_path, surface, closure, entries, rsp, statements, prov, cw, load, parent
+        main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, parent
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,9 @@ closes and queries each window firing on the device, with hand-written CUDA
 kernels for the NVIDIA H100; cross-window SDS+ and the incremental R2R carry
 expiration-tagged closures across windows and firings.  The database
 surface (bulk load through the native parsers, checkpoints, clone / union,
-serializers, ``QueryBuilder``, the ``QueryEngine`` facade) sits around it.
+serializers, ``QueryBuilder``, the ``QueryEngine`` facade) sits around it,
+and MLP neural predicates (``torch.nn``, trained through the SDD proof path's
+WMC gradients) answer MODEL / NEURAL RELATION / TRAIN / ML.PREDICT.
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``.
 
@@ -34,6 +36,8 @@ Every entry point runs on the CUDA card unless the caller passes
 
     db.checkpoint("db.npz"); SparqlDatabase.from_checkpoint("db.npz", device="cpu")
     db.load_file("data.nt"); db.to_turtle(); db.query().with_predicate(...).get_decoded_triples()
+    execute_query_volcano('MODEL "m" { ... } NEURAL RELATION ... TRAIN NEURAL RELATION ...', db)
+    execute_query_volcano('ML.PREDICT(MODEL "m", INPUT { SELECT ... }, OUTPUT ?y)', db)
 """
 
 from kolibrie_tpu_torch.core.dictionary import Dictionary

@@ -28,12 +28,14 @@ post-passes:
   DISTINCT, host ORDER BY, formatting and LIMIT/OFFSET run on the host over
   the read-back table;
 - INSERT DATA, DELETE DATA and DELETE … WHERE (its WHERE through
-  :func:`eval_where`), and RULE definitions
+  :func:`eval_where`), RULE definitions
   (:mod:`kolibrie_tpu_torch.reasoner.rule_runtime`, the closure on the
-  device fixpoint) run through :func:`execute_combined`.
+  device fixpoint) and the ML statements (MODEL, NEURAL RELATION, TRAIN,
+  ML.PREDICT: :mod:`kolibrie_tpu_torch.ml.runtime`, the MLP on the
+  database's device) run through :func:`execute_combined`; a neural
+  predicate that a SELECT names materialises first.
 
-WINDOW blocks and the ML declarations (MODEL, NEURAL RELATION, TRAIN,
-ML.PREDICT) raise :class:`Unsupported` with the construct's name.
+WINDOW blocks raise :class:`Unsupported` with the construct's name.
 """
 
 from __future__ import annotations
@@ -712,20 +714,52 @@ def process_delete_clause(db, delete: DeleteClause) -> int:
     return n * len(delete.triples)
 
 
+def collect_all_patterns(where: WhereClause) -> List[A.PatternTriple]:
+    """Every triple pattern reachable from a group pattern — including
+    OPTIONAL/UNION/MINUS branches, NOT blocks, subqueries, and WINDOW
+    blocks (used for neural-relation materialization coverage)."""
+    out: List[A.PatternTriple] = list(where.patterns)
+    for nb in where.not_blocks:
+        out.extend(nb.patterns)
+    for wb in where.window_blocks:
+        out.extend(wb.patterns)
+    for opt in where.optionals:
+        out.extend(collect_all_patterns(opt))
+    for groups in where.unions:
+        for g in groups:
+            out.extend(collect_all_patterns(g))
+    for m in where.minus:
+        out.extend(collect_all_patterns(m))
+    for sq in where.subqueries:
+        out.extend(collect_all_patterns(sq.query.where))
+    return out
+
+
+def _materialize_neural_for_select(db, select: SelectQuery) -> None:
+    if not db.neural_relations:
+        return
+    from kolibrie_tpu_torch.ml import runtime as ml_runtime
+
+    ml_runtime.materialize_neural_relations_for_patterns(
+        db, collect_all_patterns(select.where)
+    )
+
+
 def execute_combined(db, cq: CombinedQuery) -> Rows:
-    """Run a parsed statement: RULE definitions, then DELETE, then INSERT,
-    then the SELECT (the reference's ``execute_combined``).  REGISTER and
-    RETRIEVE carry nothing to run here, as in the reference; the ML
-    declarations raise :class:`Unsupported`."""
+    """Run a parsed statement (the reference's ``execute_combined``): the
+    MODEL and NEURAL RELATION declarations, TRAIN, ML.PREDICT, then RULE
+    definitions, DELETE and INSERT, then the neural predicates the SELECT
+    names and the SELECT.  REGISTER and RETRIEVE carry nothing to run here,
+    as in the reference."""
     db.prefixes.update(cq.prefixes)
-    for name, present in (
-        ("MODEL", cq.models),
-        ("NEURAL RELATION", cq.neural_relations),
-        ("TRAIN", cq.train_decls),
-        ("ML.PREDICT", cq.ml_predict is not None),
-    ):
-        if present:
-            raise Unsupported(name)
+    if cq.models or cq.neural_relations or cq.train_decls or cq.ml_predict:
+        from kolibrie_tpu_torch.ml import runtime as ml_runtime
+
+        ml_runtime.register_declarations(db, cq)
+        for train in cq.train_decls:
+            ml_runtime.execute_train_decl(db, train)
+        if cq.ml_predict is not None:
+            ml_runtime.execute_ml_predict(db, cq.ml_predict)
     from kolibrie_tpu_torch.reasoner import rule_runtime
 
     for rule in cq.rules:
@@ -735,6 +769,9 @@ def execute_combined(db, cq: CombinedQuery) -> Rows:
     if cq.insert is not None:
         process_insert_clause(db, cq.insert)
     if cq.select is not None:
+        # neural predicates referenced anywhere in the query materialize as
+        # ordinary triples first (neural_relations.rs parity)
+        _materialize_neural_for_select(db, cq.select)
         return execute_select(db, cq.select)
     return []
 
@@ -754,4 +791,6 @@ def execute_query(sparql: str, db) -> Rows:
     cq = parse_combined_query(sparql, db.prefixes)
     if cq.select is None:
         return execute_combined(db, cq)
+    # same pre-pass as the volcano path, so both agree on neural queries
+    _materialize_neural_for_select(db, cq.select)
     return execute_select(db, cq.select, use_optimizer=False)

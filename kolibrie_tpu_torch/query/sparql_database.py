@@ -9,9 +9,8 @@ reference's file format, readable by either package), clone / union /
 ``par_join``, the N-Triples, Turtle and RDF/XML serializers, term
 encoding/decoding, prefixes, UDFs, the numeric-literal table, the
 optimizer statistics, and the registries that ``execute_combined`` and
-RULE definitions read (``rule_map``, ``neural_relations``,
-``probability_seeds``).  The ML registries (``model_registry``,
-``trained_models``) come with the ML slice (ROADMAP A5).
+RULE definitions read (``rule_map``, ``model_registry``,
+``neural_relations``, ``trained_models``, ``probability_seeds``).
 """
 
 from __future__ import annotations
@@ -56,8 +55,12 @@ class SparqlDatabase:
         self.udfs: Dict[str, Callable] = {}
         #: RULE definitions by name (``execute_combined``)
         self.rule_map: Dict[str, object] = {}
-        #: NEURAL RELATION declarations; empty until the ML slice is ported
+        #: MODEL declarations by name
+        self.model_registry: Dict[str, object] = {}
+        #: NEURAL RELATION declarations by predicate IRI (and "by_model:<name>")
         self.neural_relations: Dict[str, object] = {}
+        #: MLP neural predicates by model name, on this database's device
+        self.trained_models: Dict[str, object] = {}
         #: input probabilities of facts, for the provenance seeds
         self.probability_seeds: Dict[Tuple[int, int, int], float] = {}
         self._stats = None
@@ -585,7 +588,9 @@ class SparqlDatabase:
         db.prefixes = dict(self.prefixes)
         db.udfs = dict(self.udfs)
         db.rule_map = dict(self.rule_map)
+        db.model_registry = dict(self.model_registry)
         db.neural_relations = dict(self.neural_relations)
+        db.trained_models = dict(self.trained_models)
         db.probability_seeds = dict(self.probability_seeds)
         return db
 

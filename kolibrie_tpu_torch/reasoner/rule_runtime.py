@@ -2,7 +2,7 @@
 
 Port of ``kolibrie_tpu/reasoner/rule_runtime.py`` (parity:
 ``kolibrie/src/parser.rs`` ``convert_combined_rule`` :2256-2436 and
-``process_rule_definition`` :2439-2734) without ML: a parsed
+``process_rule_definition`` :2439-2734): a parsed
 :class:`CombinedRule` becomes an ID-space datalog rule over a reasoner
 holding the database's triples and probability seeds.  A classical rule's
 closure runs through :meth:`Reasoner.infer_new_facts_semi_naive_parallel`
@@ -12,8 +12,9 @@ runs the selected provenance semiring through
 :func:`infer_with_provenance` (the device tagged fixpoint on the card for
 the scalar semirings) and writes its tags into the database as
 ``<< s p o >> prob:value`` triples, with proof explanations for ``wmc`` /
-``sdd``.  The R2S operator's facts are written back with one batch.  A
-rule with ``ML.PREDICT`` raises ``Unsupported`` (ROADMAP A5).
+``sdd``.  The R2S operator's facts are written back with one batch.  The
+neural predicates a rule body names materialise first, and a rule with
+``ML.PREDICT`` runs the prediction into the database before its closure.
 """
 
 from __future__ import annotations
@@ -111,13 +112,23 @@ def process_combined_rule(db, rule: A.CombinedRule) -> Tuple[Rule, List[Triple]]
     triples under the rule, and the R2S operator's facts written to the
     store.  Returns the rule and the emitted facts (SPO order; the
     reference's order is its set difference's, and the store is a set)."""
-    if rule.ml_predict is not None:
-        from kolibrie_tpu_torch.optimizer.device_engine import Unsupported
+    if db.neural_relations:
+        # rule bodies referencing neural predicates materialize first
+        # (parser.rs:2482 parity)
+        from kolibrie_tpu_torch.ml import runtime as ml_runtime
+        from kolibrie_tpu_torch.query.executor import collect_all_patterns
 
-        raise Unsupported("ML.PREDICT")
+        ml_runtime.materialize_neural_relations_for_patterns(
+            db, collect_all_patterns(rule.body)
+        )
     kg = build_reasoner_from_db(db)
     dynamic_rule = convert_combined_rule(db, rule)
     db.rule_map[rule.name] = dynamic_rule
+    if rule.ml_predict is not None:
+        from kolibrie_tpu_torch.ml import runtime as ml_runtime
+
+        ml_runtime.execute_ml_predict(db, rule.ml_predict)
+        kg.facts = db.store.clone()
     before = kg.facts.columns()
     kg.add_rule(dynamic_rule)
     if rule.prob is not None:

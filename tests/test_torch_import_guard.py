@@ -105,6 +105,21 @@ assert port.execute_query_volcano(
 rows = port.execute_query_volcano(
     "SELECT ?x ?v WHERE { << ?x <http://e/r2> ?z >> <http://kolibrie.tpu/prob#value> ?v }", db)
 assert sorted(rows) == [["http://e/a", "0.25"], ["http://e/b", "0.25"]], rows
+import kolibrie_tpu_torch.ml.handler
+import kolibrie_tpu_torch.ml.mlschema
+from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
+from kolibrie_tpu_torch.parallel import train_step
+ml = port.SparqlDatabase(device="cpu")
+ml.parse_ntriples("".join(
+    f'<http://e/m{i}> <http://e/t> "{50 + 30 * (i % 2)}" .\n'
+    f'<http://e/m{i}> <http://e/hot> "{"true" if i % 2 else "false"}" .\n' for i in range(8)))
+assert port.execute_query_volcano(
+    'PREFIX e: <http://e/> MODEL "h" { ARCH MLP { HIDDEN [4] } OUTPUT BINARY } '
+    'NEURAL RELATION e:isHot USING MODEL "h" { INPUT { ?m e:t ?t . } FEATURES { ?t } } '
+    'TRAIN NEURAL RELATION e:isHot { DATA { ?m e:hot ?h . } LABEL ?h '
+    'TARGET { ?m e:isHot ?l } LOSS bce EPOCHS 30 BATCH_SIZE 8 LEARNING_RATE 0.1 }', ml) == []
+rows = port.execute_query_volcano("SELECT ?m WHERE { ?m <http://e/isHot> ?v }", ml)
+assert sorted(rows) == [[f"http://e/m{i}"] for i in (1, 3, 5, 7)], rows
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -130,6 +145,12 @@ except RuntimeError as e:
     assert "CUDA" in str(e)
 else:
     raise AssertionError("an RSP engine without a device and no CUDA card must raise")
+try:
+    MlpNeuralPredicate(2)
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("a model without a device and no CUDA card must raise")
 try:
     ReasoningHierarchy()
 except RuntimeError as e:
@@ -172,7 +193,8 @@ def _imports(path: Path):
 def test_no_source_of_the_port_names_jax_or_the_jax_package():
     pkg = REPO / "kolibrie_tpu_torch"
     walked = {f.parent.name for f in pkg.rglob("*.py")}
-    assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops", "native"} <= walked, walked
+    assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops", "native", "ml",
+            "parallel"} <= walked, walked
     files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "chip_profile.py",

@@ -1,7 +1,7 @@
 """The statements beside SELECT on the PyTorch port against the JAX package:
 INSERT DATA, DELETE DATA, DELETE … WHERE, RULE definitions (filters, NOT
-blocks, each R2S stream type), RULE … PROB with its tag triples, the ML
-declarations that still raise, and the package's exports.
+blocks, each R2S stream type), RULE … PROB with its tag triples, a MODEL declaration, what still
+raises, and the package's exports.
 
 Both packages hold the same database (the port's ``from_arrays`` takes the
 reference's dictionary, quoted table and columns, so every ID matches), run
@@ -252,11 +252,18 @@ def test_rule_with_prob_raises():
     ],
 )
 def test_what_still_raises(q, construct):
-    """The ML declarations and WINDOW blocks raise ``Unsupported`` by
-    name; REGISTER carries nothing to run, as in the reference."""
+    """WINDOW blocks raise ``Unsupported`` by name; REGISTER carries
+    nothing to run, and a MODEL declaration registers the model, as in the
+    reference."""
     ref, tdb = pair()
     if construct is None:
         assert port.execute_query_volcano(EX + q, tdb) == ref_execute(EX + q, ref) == []
+        return
+    if construct == "MODEL":
+        assert port.execute_query_volcano(EX + q, tdb) == ref_execute(EX + q, ref) == []
+        assert tdb.model_registry.keys() == ref.model_registry.keys() == {"m"}
+        assert tdb.model_registry["m"].arch.hidden == ref.model_registry["m"].arch.hidden == [4]
+        assert decoded(tdb) == decoded(ref)
         return
     with pytest.raises(port.Unsupported, match=construct):
         port.execute_query_volcano(EX + q, tdb)
