@@ -55,6 +55,19 @@ forward, backward and update (synchronised), the per-sample closures, the
 WMC gradients and the weight reassignment; three of them once more under
 ``torch.profiler`` (busy share: over the timed run's wall); and the SDD
 path's per-sample closure over the premise facts against the whole store.
+Then phase 13 (``profile_repeated``): a prepared query's ``run`` against
+``execute_query_volcano`` (employee join, Q2, Q9), 13b's 64 employee
+template variants solo (through the plan cache, every variant a rebind)
+against the same variants uncached (``execute_combined`` of a fresh parse,
+with the parse and the cache's bookkeeping of a rebind timed alone, and
+the two in turns after a full collection each, ``rebind_turns``) and
+one ``execute_queries_batched`` call, the
+same variants through the plan-bytecode interpreter, and ``bench.py``'s MQO
+fleet (256 standing queries) independent against shared: each a warm run
+timed (wall, synchronised), then under ``torch.profiler`` (device busy ms,
+busy share over the timed wall, device ops, top operators; Python's
+garbage collections during the timed run).
+``python3 chip_profile.py repeated`` runs phase 13's part alone.
 Prints one JSON object per query, one for the closure, one for the RSP
 stream, one per statement, one per phase-9 run, one per crossover
 point, one per phase-10 point, cycle list and sweep ratio, one for phase
@@ -806,9 +819,126 @@ def profile_ml(dev, lubm) -> list:
         out.append(rec)
     return out
 
-def main() -> int:
+def rebind_turns(emp, texts, rounds: int = 4) -> dict:
+    """13b's variants through the plan cache (every one a rebind) and
+    uncached (``execute_combined`` of a fresh parse), in turns (cached,
+    uncached, uncached, cached, ...), each pass after a full collection so
+    that no pass inherits another's garbage; ms a query per pass and each
+    pass's collections."""
+    import gc
+
     import torch
 
+    from chip_smoke import GcMeter
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.query.executor import execute_combined
+    from kolibrie_tpu_torch.query.parser import parse_combined_query
+
+    passes = {
+        "cached": lambda: [execute_query_volcano(t, emp) for t in texts],
+        "uncached": lambda: [execute_combined(emp, parse_combined_query(t, emp.prefixes))
+                             for t in texts],
+    }
+    rec = {"case": "13b_employee_rebind_turns", "cached_ms_per_query": [],
+           "uncached_ms_per_query": [], "gc": {"cached": [], "uncached": []}}
+    for r in range(rounds):
+        for name in ("cached", "uncached") if r % 2 == 0 else ("uncached", "cached"):
+            gc.collect()
+            torch.cuda.synchronize()
+            with GcMeter() as gcm:
+                t = time.perf_counter()
+                passes[name]()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            rec[f"{name}_ms_per_query"].append(wall / len(texts))
+            rec["gc"][name].append(gcm.summary())
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def profile_repeated(dev, lubm, emp) -> list:
+    """Phase 13's layer on the card: per case, a warm run's wall
+    (synchronised) and then its device profile."""
+    import torch
+
+    from benches.lubm import LUBM_Q2, LUBM_Q9
+    from chip_smoke import (
+        EMPLOYEE_QUERY,
+        FLEET_QUERIES,
+        FLEET_ROWS,
+        TEMPLATE_VARIANTS,
+        GcMeter,
+        employee_template,
+        fleet_ntriples,
+        fleet_q,
+    )
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.optimizer import mqo, plan_interp
+    from kolibrie_tpu_torch.optimizer.device_engine import PreparedQuery
+    from kolibrie_tpu_torch.query import executor as EX
+    from kolibrie_tpu_torch.query.parser import parse_combined_query
+
+    def measured(case: str, fn, queries: int = 1) -> dict:
+        fn()  # warm: plan cache, capacities, kernel libraries
+        torch.cuda.synchronize()
+        with GcMeter() as gcm:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        prof = device_profile(fn)
+        rec = {"case": case, "wall_ms": wall, "per_query_ms": wall / queries,
+               "busy_share": prof["device_busy_ms"] / wall, "gc": gcm.summary(), **prof}
+        print(json.dumps(rec), flush=True)
+        return rec
+
+    out = []
+    for name, db, q in (("employee", emp, EMPLOYEE_QUERY), ("q2", lubm, LUBM_Q2),
+                        ("q9", lubm, LUBM_Q9)):
+        pq = PreparedQuery(db, q)
+        pq.calibrate()
+        out.append(measured(f"13a_{name}_prepared_run", pq.run))
+        out.append(measured(f"13a_{name}_volcano", lambda: execute_query_volcano(q, db)))
+    texts = [employee_template(i) for i in range(TEMPLATE_VARIANTS)]
+    out.append(measured("13b_employee_solo", lambda: [execute_query_volcano(t, emp) for t in texts],
+                        len(texts)))
+    # the parent's path for the same variants (parse, plan, lower, run),
+    # and what the cached path does instead of parsing: the plan cache's
+    # bookkeeping of a rebind (host only)
+    out.append(measured("13b_employee_uncached", lambda: [
+        EX.execute_combined(emp, parse_combined_query(t, emp.prefixes)) for t in texts],
+        len(texts)))
+    out.append(rebind_turns(emp, texts))
+    out.append(measured("13b_employee_parse", lambda: [
+        parse_combined_query(t, emp.prefixes) for t in texts], len(texts)))
+    out.append(measured("13b_employee_rebind_bookkeeping", lambda: [
+        EX._plan_cache_entry(emp, t) for t in texts], len(texts)))
+    out.append(measured("13b_employee_batched", lambda: EX.execute_queries_batched(emp, texts),
+                        len(texts)))
+    with plan_interp.override_mode("force"):
+        out.append(measured("13c_employee_interp",
+                            lambda: [execute_query_volcano(t, emp) for t in texts], len(texts)))
+    fleet = SparqlDatabase(device=dev)
+    fleet.parse_ntriples(fleet_ntriples(FLEET_ROWS))
+    owners = [f"w{i}" for i in range(FLEET_QUERIES)]
+    for o in owners:
+        mqo.register_standing(fleet, o)
+
+    def fire():
+        for i, o in enumerate(owners):
+            with mqo.standing_scope(fleet, o):
+                execute_query_volcano(fleet_q(i), fleet)
+
+    out.append(measured("13d_fleet_independent", fire, FLEET_QUERIES))
+    with mqo.override_mqo_mode("force"):
+        out.append(measured("13d_fleet_shared", fire, FLEET_QUERIES))
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -835,6 +965,13 @@ def main() -> int:
         torch.cuda.synchronize()
     out = []
     queries = build_queries(dev)
+    if argv == ["repeated"]:
+        lubm = next(db for name, db, _q, _w in queries if name == "q2")
+        emp = next(db for name, db, _q, _w in queries if name == "employee")
+        repeated = profile_repeated(dev, lubm, emp)
+        print(card)
+        print(json.dumps({"card": card, "repeated": repeated}))
+        return 0
     for name, db, sparql, wcoj in queries:
         out.append(profile_query(name, db, sparql, wcoj))
         print(json.dumps(out[-1]), flush=True)
@@ -868,11 +1005,12 @@ def main() -> int:
     emp = next(db for name, db, _q, _w in queries if name == "employee")
     load = profile_load(dev, lubm, emp)
     ml = profile_ml(dev, lubm)
+    repeated = profile_repeated(dev, lubm, emp)
     print(card)
     print(json.dumps({"card": card, "queries": out, "closure": closure, "rsp": rsp,
                       "statements": statements, "provenance": provenance,
                       "prov_crossover": crossover, "cross_window": cross_window,
-                      "churn_sweep": churn, "load": load, "ml": ml}))
+                      "churn_sweep": churn, "load": load, "ml": ml, "repeated": repeated}))
     return 0
 
 

@@ -182,8 +182,33 @@ result line):
             Each statement's wall and launches; the ML statements must
             launch the merge path.  Counters zeroed just before the card's
             statements, read just after.
+13. repeated queries — over phase 4's databases.  13a: ``PreparedQuery``
+            on the employee join, Q2 and Q9: ``calibrate`` on the host twin,
+            ``run`` x20, ``run_amortized(16)``, ``fetch``: phase 4's rows,
+            the twin's counts equal to the converged counts, and no readback
+            across the runs (``fetch_counters``).  13b: 64 constant-variants
+            of ``benches/bench_plan_template.py``'s template on the employee
+            predicates and 64 of a two-pattern LUBM join (one department a
+            variant) through the plan cache — one new spec, one miss and 63
+            parameter rebinds each, a hit on a repeat, the rows of uncached
+            runs — then through one ``execute_queries_batched`` call (one
+            batched dispatch, the solo rows).  13c: the employee variants
+            under ``plan_interp`` force: the specialized rows, source
+            ``interp``; Q9 and the LUBM template decline (WCOJ; the register
+            file's cell budget).  13d: ``bench.py``'s MQO fleet (50,000
+            subjects, 256 standing queries) off, then twice under force:
+            equal rows, one shared prefix evaluation and 511 cache hits, the
+            ``mqo:`` EXPLAIN line.  13e: EXPLAIN ANALYZE on Q2 and Q9 (the
+            actuals equal the row counts), then Q9 three times under the
+            stats advisor (rows unchanged; its report and replans logged).
+            13f: ``compile_cache.enable`` on a temporary directory, the
+            kernels built there, 13b's templates recorded and the manifest
+            saved; a second process loads a fresh LUBM-1000 and replays the
+            manifest: both templates warmed, every kernel library a cache
+            hit, none built.  Walls (cold, warm) and launches per subphase;
+            counters zeroed just before 13a and read just after 13e.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7-12), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-13), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -3436,6 +3461,420 @@ def run_ml_phase(dev, lubm) -> dict:
 # ------------------------------------------------------- kernel timing
 
 
+# ------------------------------------------------- phase 13: the repeated-query layer
+
+REPEAT_RUNS = 20  # 13a: PreparedQuery.run calls after calibration
+REPEAT_K = 16  # 13a: run_amortized(k)
+TEMPLATE_VARIANTS = 64  # 13b: constant-variants of each template
+FLEET_ROWS = 50_000  # 13d: CITYBENCH_SWEEP.json's largest size, as bench.py's fleet takes it
+FLEET_QUERIES = 256  # 13d: standing queries of bench.py's largest fleet
+TEMPLATE_PREFIXES = """PREFIX ds: <https://data.example/ontology#>
+PREFIX foaf: <http://xmlns.com/foaf/0.1/>
+PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>
+"""
+
+
+def employee_template(i: int) -> str:
+    """``benches/bench_plan_template.py``'s ``variant`` on the employee
+    predicates of ``bench.py``: the company homepage in the department's
+    place, the same salary thresholds.  Its variable names are its own, so
+    its spec tree is new to the process whatever ran before."""
+    return (TEMPLATE_PREFIXES + f"SELECT ?tplEmp ?tplPay WHERE {{ ?tplEmp foaf:workplaceHomepage "
+            f"<https://company{i % 16}.example/> . ?tplEmp ds:annual_salary ?tplPay . "
+            f"FILTER(?tplPay > {30000 + (i * 700) % 35000}) }}")
+
+
+def lubm_template(i: int) -> str:
+    """A two-pattern LUBM join, one department a variant: the courses its
+    students take (variable names of its own, as ``employee_template``)."""
+    from benches.lubm import DEPTS_PER_UNIV
+
+    dept = f"http://www.Department{i % DEPTS_PER_UNIV}.University{i // DEPTS_PER_UNIV}.edu"
+    return (TEMPLATE_PREFIXES
+            + f"SELECT ?tplStudent ?tplCourse WHERE {{ ?tplStudent ub:memberOf <{dept}> . "
+            f"?tplStudent ub:takesCourse ?tplCourse }}")
+
+
+def fleet_ntriples(rows: int) -> str:
+    """``bench.py``'s MQO fleet store: a value and a kind per subject."""
+    lines = []
+    for i in range(rows):
+        s = f"<http://e/s{i}>"
+        lines.append(f'{s} <http://e/val> "{i % 100}" .')
+        lines.append(f'{s} <http://e/kind> "k{i % 7}" .')
+    return "\n".join(lines)
+
+
+def fleet_q(i: int) -> str:
+    """``bench.py``'s standing fleet query ``i``: one prefix, ``i``'s filter."""
+    return ('SELECT ?s ?v WHERE { ?s <http://e/kind> "k3" . '
+            f"?s <http://e/val> ?v . FILTER(?v > {i % 90}) }}")
+
+
+class GcMeter:
+    """Python's garbage collections over a ``with`` block: the count per
+    generation and the milliseconds they took (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.counts, self.ms, self._t = [0, 0, 0], 0.0, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.counts[info["generation"]] += 1
+            self.ms += (time.perf_counter() - self._t) * 1e3
+            self._t = None
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._note)
+        return False
+
+    def summary(self) -> dict:
+        return {"collections_by_generation": self.counts, "ms": self.ms}
+
+
+def prewarm_child(cache_dir: str, universities: int, device: str) -> dict:
+    """13f's second process: a fresh LUBM database replays the manifest
+    against the same compile-cache directory.  Returns what it saw."""
+    import torch
+
+    from benches.lubm import generate_fast
+    from kolibrie_tpu_torch import SparqlDatabase
+    from kolibrie_tpu_torch.query import compile_cache, prewarm
+
+    compile_cache.enable(explicit_dir=cache_dir)
+    db = SparqlDatabase(device=torch.device(device))
+    s, p, o = generate_fast(universities, db.dictionary)
+    db.store.add_batch(s, p, o)
+    t = time.perf_counter()
+    results = prewarm.replay_manifest(db, cache_dir)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"results": results, "counters": compile_cache.counters(),
+            "ms": (time.perf_counter() - t) * 1e3, "triples": len(db)}
+
+
+def run_repeated_phase(dev, main_path: dict, lubm, emp, universities: int = UNIVERSITIES,
+                       variants: int = TEMPLATE_VARIANTS, fleet_rows: int = FLEET_ROWS,
+                       fleet_queries: int = FLEET_QUERIES, runs: int = REPEAT_RUNS,
+                       k: int = REPEAT_K) -> dict:
+    """Phase 13 on ``dev``: the repeated-query layer at full width.  13a
+    ``PreparedQuery`` on the employee join, Q2 and Q9 (calibrate on the
+    host twin, ``run`` x ``runs``, ``run_amortized(k)``, ``fetch``): rows
+    equal phase 4's, the twin's counts equal the converged counts, and the
+    runs read nothing back.  13b two template sets of ``variants``
+    constant-variants through the plan cache (one new spec each, one miss
+    and ``variants - 1`` rebinds, a hit on a repeat, rows equal uncached
+    runs) and then through one ``execute_queries_batched`` call (rows equal
+    solo, one batched dispatch).  13c the employee variants under
+    ``plan_interp`` force (the interpreter's rows and source; Q9 and the
+    LUBM template decline).  13d ``bench.py``'s MQO fleet: ``fleet_queries``
+    standing queries off, then two rounds under force (rows equal, one
+    shared evaluation, every other query a cache hit, the ``mqo:`` EXPLAIN
+    line).  13e EXPLAIN ANALYZE on
+    Q2 and Q9 (actuals equal the row counts) and Q9 under the stats advisor
+    (rows unchanged).  13f the compile cache and a second process replaying
+    the manifest (every template warmed, every kernel library a hit).
+    Launch counters are zeroed just before 13a and read just after 13e."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from benches.lubm import LUBM_Q2, LUBM_Q9
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.optimizer import device_engine as DE
+    from kolibrie_tpu_torch.optimizer import mqo, plan_interp, stats_advisor
+    from kolibrie_tpu_torch.query import compile_cache
+    from kolibrie_tpu_torch.query import executor as EX
+    from kolibrie_tpu_torch.query.engine import QueryEngine
+    from kolibrie_tpu_torch.query.parser import parse_combined_query
+    from kolibrie_tpu_torch.query.template import fingerprint_query
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    walls: dict = {}
+
+    def step(name, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        walls[name] = walls.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+        return out
+
+    def launches_of(fn):
+        before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        out = fn()
+        after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+        return out, {k2: after[k2] - before[k2] for k2 in after if after[k2] != before[k2]}
+
+    want = {name: main_path["rows"][name] for name in ("employee", "q2", "q9")}
+    captured: dict = {}
+    report: dict = {}
+    K.reset_launches()
+    undo = recorder_install(captured)
+    try:
+        # ---- 13a. prepared queries
+        for name, db, q in (("employee", emp, EMPLOYEE_QUERY), ("q2", lubm, LUBM_Q2),
+                            ("q9", lubm, LUBM_Q9)):
+            pq = step(f"13a_{name}_prepare", lambda: DE.PreparedQuery(db, q))
+            twin = step(f"13a_{name}_calibrate", pq.lowered.calibrate_host)
+            fetched0 = DE.fetch_counters()
+            out, l_cold = launches_of(lambda: step(f"13a_{name}_run_cold", pq.run))
+            for _ in range(runs - 1):
+                out, l_warm = launches_of(lambda: step(f"13a_{name}_run_warm", pq.run))
+            (sums, nrows), l_k = launches_of(
+                lambda: step(f"13a_{name}_run_k", lambda: pq.run_amortized(k)))
+            if DE.fetch_counters() != fetched0:
+                raise AssertionError(f"13a {name}: run()/run_amortized() read back "
+                                     f"{DE.fetch_counters()} (before {fetched0})")
+            rows = step(f"13a_{name}_fetch", lambda: pq.fetch(out))
+            if rows != want[name]:
+                raise AssertionError(f"13a {name}: prepared rows differ from phase 4's")
+            if pq.lowered._last_counts != twin:
+                raise AssertionError(f"13a {name}: host twin counts {twin}, converged "
+                                     f"{pq.lowered._last_counts}")
+            nrows_h, sums_h = nrows.tolist(), sums.tolist()
+            if set(nrows_h) != {len(rows)} or len(set(sums_h)) != 1:
+                raise AssertionError(f"13a {name}: run_k rows {set(nrows_h)}, "
+                                     f"checksums {set(sums_h)}")
+            report[f"13a_{name}"] = {
+                "rows": len(rows), "twin_counts": twin, "caps": list(pq.lowered._join_caps),
+                "run_cold_ms": walls[f"13a_{name}_run_cold"],
+                "run_warm_ms": walls.get(f"13a_{name}_run_warm", 0.0) / max(runs - 1, 1),
+                "run_k_ms_per_iter": walls[f"13a_{name}_run_k"] / k,
+                "calibrate_ms": walls[f"13a_{name}_calibrate"],
+                "fetch_ms": walls[f"13a_{name}_fetch"],
+                "launches": {"cold": l_cold, "warm": l_warm if runs > 1 else {}, "run_k": l_k},
+            }
+            log(f"13a {name}: {report[f'13a_{name}']}")
+            del pq, out
+
+        # ---- 13b. templates: solo through the plan cache, then batched
+        texts = {"employee": [employee_template(i) for i in range(variants)],
+                 "lubm": [lubm_template(i) for i in range(variants)]}
+        dbs = {"employee": emp, "lubm": lubm}
+        solo_rows = {}
+        for label, db in dbs.items():
+            # each pass's Python collections and counts readbacks (one a
+            # query unless a capacity overflowed and the plan re-ran)
+            gcs, reads = {}, {}
+
+            def metered(name, fn):
+                r0 = DE.fetch_counters().get("converge.counts", 0)
+                with GcMeter() as meter:
+                    out = fn()
+                gcs[name] = meter.summary()
+                reads[name] = DE.fetch_counters().get("converge.counts", 0) - r0
+                return out
+
+            info0, comp0 = EX.plan_cache_info(db), DE.device_compile_stats()
+            rows, l_solo = launches_of(lambda: metered("solo", lambda: [
+                step(f"13b_{label}_solo_{'cold' if i == 0 else 'warm'}",
+                     lambda t=t: execute_query_volcano(t, db))
+                for i, t in enumerate(texts[label])]))
+            info1, comp1 = EX.plan_cache_info(db), DE.device_compile_stats()
+            execute_query_volcano(texts[label][-1], db)
+            info2 = EX.plan_cache_info(db)
+            got = (comp1["run_plan"] - comp0["run_plan"], info1["misses"] - info0["misses"],
+                   info1["param_rebinds"] - info0["param_rebinds"], info2["hits"] - info1["hits"])
+            if got != (1, 1, variants - 1, 1):
+                raise AssertionError(f"13b {label}: (new specs, misses, rebinds, repeat hits) "
+                                     f"{got}, expected (1, 1, {variants - 1}, 1)")
+            # the parent's path (parse, plan, lower, run; no cache), then a
+            # second pass through the cache (every variant a rebind again),
+            # so the first pass's one-time costs show against both
+            uncached = metered("uncached", lambda: step(f"13b_{label}_uncached", lambda: [
+                EX.execute_combined(db, parse_combined_query(t, db.prefixes))
+                for t in texts[label]]))
+            again = metered("solo_again", lambda: step(f"13b_{label}_solo_again", lambda: [
+                execute_query_volcano(t, db) for t in texts[label]]))
+            if uncached != rows or again != rows:
+                raise AssertionError(f"13b {label}: cached rows differ from uncached runs")
+            fetched0 = DE.fetch_counters()
+            batched, l_batch = launches_of(lambda: step(
+                f"13b_{label}_batched", lambda: EX.execute_queries_batched(db, texts[label])))
+            info3, comp3 = EX.plan_cache_info(db), DE.device_compile_stats()
+            if batched != rows:
+                raise AssertionError(f"13b {label}: batched rows differ from solo")
+            fetched = DE.fetch_counters()
+            batch_reads = fetched.get("batch.counts", 0) - fetched0.get("batch.counts", 0)
+            if (info3["batch_groups"] - info2["batch_groups"],
+                    info3["batched"] - info2["batched"]) != (1, variants):
+                raise AssertionError(f"13b {label}: not one batched dispatch of {variants}")
+            solo_rows[label] = rows
+            report[f"13b_{label}"] = {
+                "variants": variants, "rows": sum(len(r) for r in rows),
+                "solo_cold_ms": walls[f"13b_{label}_solo_cold"],
+                "solo_warm_ms_per_query": walls[f"13b_{label}_solo_warm"] / (variants - 1),
+                "uncached_ms_per_query": walls[f"13b_{label}_uncached"] / variants,
+                "solo_again_ms_per_query": walls[f"13b_{label}_solo_again"] / variants,
+                "batched_ms_per_query": walls[f"13b_{label}_batched"] / variants,
+                "gc": gcs, "count_reads": reads,
+                "batch_count_reads": batch_reads,
+                "new_batch_specs": comp3["run_plan_batch"] - comp1["run_plan_batch"],
+                "launches": {"solo": l_solo, "batched": l_batch},
+            }
+            log(f"13b {label}: {report[f'13b_{label}']}")
+
+        # ---- 13c. the plan-bytecode interpreter
+        with plan_interp.override_mode("force"):
+            interp0 = DE.device_compile_stats()["run_interp"]
+            rows, l_interp = launches_of(lambda: step("13c_interp", lambda: [
+                execute_query_volcano(t, emp) for t in texts["employee"]]))
+            if rows != solo_rows["employee"]:
+                raise AssertionError("13c: interpreter rows differ from the specialized path")
+            fp = fingerprint_query(parse_combined_query(texts["employee"][0], emp.prefixes))[0]
+            src = EX.plan_cache_info(emp)["per_template"][fp]["source"]
+            q9_rows = step("13c_q9", lambda: execute_query_volcano(LUBM_Q9, lubm))
+            fp9 = fingerprint_query(parse_combined_query(LUBM_Q9, lubm.prefixes))[0]
+            src9 = EX.plan_cache_info(lubm)["per_template"][fp9]["source"]
+            if src != "interp" or src9 != "compiled" or q9_rows != want["q9"]:
+                raise AssertionError(f"13c: sources {src} / Q9 {src9}")
+            low = DE.PreparedQuery(lubm, texts["lubm"][0]).lowered
+            low.build()
+            try:
+                plan_interp.compile_bytecode(low)
+                lubm_decline = None
+            except plan_interp.InterpUnsupported as e:
+                lubm_decline = str(e)
+        report["13c"] = {
+            "interp_ms_per_query": walls["13c_interp"] / variants, "source": src,
+            "q9_source": src9, "size_classes": DE.device_compile_stats()["run_interp"] - interp0,
+            "lubm_template_declines": lubm_decline, "launches": l_interp,
+        }
+        log(f"13c: {report['13c']}")
+
+        # ---- 13d. MQO's shared prefix over bench.py's fleet
+        fleet = SparqlDatabase(device=dev)
+        step("13d_fleet_load", lambda: fleet.parse_ntriples(fleet_ntriples(fleet_rows)))
+        owners = [f"w{i}" for i in range(fleet_queries)]
+        for o in owners:
+            mqo.register_standing(fleet, o)
+        off = [execute_query_volcano(fleet_q(i), fleet) for i in range(fleet_queries)]
+        off = step("13d_off", lambda: [execute_query_volcano(fleet_q(i), fleet)
+                                       for i in range(fleet_queries)])
+
+        def fire():
+            out = []
+            for i, o in enumerate(owners):
+                with mqo.standing_scope(fleet, o):
+                    out.append(execute_query_volcano(fleet_q(i), fleet))
+            return out
+
+        with mqo.override_mqo_mode("force"):
+            reads0 = DE.fetch_counters().get("mqo.counts", 0)
+            step("13d_force_cold", fire)
+            # the shared prefix ran on the card: the interpreter read its
+            # join counts back once (a host-twin evaluation reads none)
+            prefix_reads = DE.fetch_counters().get("mqo.counts", 0) - reads0
+            shared, l_mqo = launches_of(lambda: step("13d_force", fire))
+            stats = mqo.stats(fleet)
+            mqo_line = QueryEngine(fleet).explain_device(fleet_q(0)).splitlines()[-1]
+        if shared != off:
+            raise AssertionError("13d: shared-prefix rows differ from independent runs")
+        prefixes = list(stats["prefixes"].values())
+        if (len(prefixes) != 1 or prefixes[0]["shared_evals"] != 1
+                or prefixes[0]["host_evals"] != 0 or prefix_reads < 1
+                or prefixes[0]["cache_hits"] != 2 * fleet_queries - 1
+                or not mqo_line.startswith("mqo: shared prefix=")):
+            raise AssertionError(f"13d: prefixes {stats['prefixes']}, prefix count reads "
+                                 f"{prefix_reads}, EXPLAIN {mqo_line!r}")
+        report["13d"] = {
+            "fleet_rows": fleet_rows, "queries": fleet_queries, "prefix": prefixes[0],
+            "prefix_on_card": prefix_reads >= 1 and prefixes[0]["host_evals"] == 0,
+            "prefix_count_reads": prefix_reads, "host_evals": prefixes[0]["host_evals"],
+            "off_ms_per_query": walls["13d_off"] / fleet_queries,
+            "force_cold_ms_per_query": walls["13d_force_cold"] / fleet_queries,
+            "force_ms_per_query": walls["13d_force"] / fleet_queries,
+            "marginal_ratio": walls["13d_force"] / walls["13d_off"], "explain": mqo_line,
+            "launches": l_mqo,
+        }
+        log(f"13d: {report['13d']}")
+        del fleet
+
+        # ---- 13e. EXPLAIN ANALYZE and the stats advisor
+        expected = {"q2": len(want["q2"]), "q9": len(want["q9"])}
+        for name, q in (("q2", LUBM_Q2), ("q9", LUBM_Q9)):
+            text = step(f"13e_{name}_explain",
+                        lambda: QueryEngine(lubm).explain_device(q, analyze=True))
+            n = expected[name]
+            if f"\nrows: {n}\n" not in text + "\n" or not (
+                    f"actual={n}" in text or f"live={n}" in text):
+                raise AssertionError(f"13e {name}: EXPLAIN ANALYZE actuals miss {n}:\n{text}")
+            log(f"13e {name} EXPLAIN ANALYZE:\n{text}")
+        with stats_advisor.override_mode("auto"):
+            info0 = EX.plan_cache_info(lubm)
+            for rep in range(3):
+                rows = step(f"13e_q9_advisor_{rep}", lambda: execute_query_volcano(LUBM_Q9, lubm))
+                if rows != want["q9"]:
+                    raise AssertionError("13e: Q9 rows changed under the stats advisor")
+            fp9 = fingerprint_query(parse_combined_query(LUBM_Q9, lubm.prefixes))[0]
+            advisor = stats_advisor.stats_advisor.report(fp9)
+            replans = EX.plan_cache_info(lubm)["advisor_replans"] - info0["advisor_replans"]
+            plan = QueryEngine(lubm).explain_device(LUBM_Q9, exact_counts=False)
+        report["13e"] = {
+            "advisor": {k2: v for k2, v in (advisor or {}).items() if k2 != "ops"},
+            "replans": replans, "q9_wcoj_after": "wcoj elim=" in plan,
+            "q9_advisor_ms": [walls[f"13e_q9_advisor_{r}"] for r in range(3)],
+        }
+        log(f"13e: advisor report {report['13e']}")
+    finally:
+        undo()
+    launches = {k2: v for k2, v in {**K.LAUNCHES, **K.ENTRY_LAUNCHES}.items() if v}
+    log(f"phase 13 launches: {launches}")
+
+    # ---- 13f. the compile cache and a second process replaying the manifest
+    with tempfile.TemporaryDirectory() as tmp:
+        compile_cache.enable(explicit_dir=tmp)
+        built = step("13f_build", K.build_kernels) if on_card else {}
+        with compile_cache._templates_lock:
+            compile_cache._templates.clear()
+        for t in texts["employee"] + texts["lubm"]:
+            fp = fingerprint_query(parse_combined_query(t, emp.prefixes))[0]
+            compile_cache.record_template(fp, t)
+        path = compile_cache.save_manifest(tmp)
+        if path is None or len(compile_cache.load_manifest(tmp)) != 2:
+            raise AssertionError("13f: the manifest did not save two templates")
+        code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "print(json.dumps(chip_smoke.prewarm_child(sys.argv[2], int(sys.argv[3]), "
+                "sys.argv[4])))")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, repo, tmp, str(universities), dev.type],
+            capture_output=True, text=True, timeout=600)
+        walls["13f_child"] = (time.perf_counter() - t) * 1e3
+        if proc.returncode != 0:
+            raise AssertionError(f"13f: the replaying process failed:\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        compile_cache._active_dir = None
+        K.set_build_dir(K._BUILD)
+    warmed = [r["targets"]["db"] for r in child["results"]]
+    if len(warmed) != 2 or any("error" in w for w in warmed):
+        raise AssertionError(f"13f: templates not warmed: {child['results']}")
+    if on_card and (child["counters"]["misses"] != 0 or child["counters"]["hits"] < 1
+                    or "disk" not in [w["source"] for w in warmed]):
+        raise AssertionError(f"13f: compile cache counters {child['counters']}, "
+                             f"sources {[w['source'] for w in warmed]}")
+    report["13f"] = {"built": sorted(built), "child": child["counters"],
+                     "sources": [w["source"] for w in warmed],
+                     "warm_ms": [w["ms"] for w in warmed], "replay_ms": child["ms"],
+                     "child_wall_ms": walls["13f_child"]}
+    log(f"13f: {report['13f']}")
+    log(f"phase 13 walls (ms): { {k2: round(v, 3) for k2, v in walls.items()} }")
+    return {"report": report, "launches": launches, "captured": captured, "walls": walls}
+
+
 def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
     """One kernel row: its check against the plain version on ``args``,
     device times of the kernel, the plain version and the library call,
@@ -3532,7 +3971,7 @@ def load_parent_kernels(root: str):
 
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
-    prov: dict, cw: dict, load: dict, ml: dict, parent=None,
+    prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -3542,7 +3981,8 @@ def kernels_at_main_path_shapes(
     for the RSP path's merge path and filter, phase 10's card runs for the
     cross-window and incremental closures' merge path and filter, phase
     11's queries after the load for the lex probes, phase 12's card
-    statements for the ML path's merge path and filter.  The merge path's and the
+    statements for the ML path's merge path and filter, phase 13's
+    repeated-query runs (13a-13e) for the merge path and the lex probes.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -3659,6 +4099,17 @@ def kernels_at_main_path_shapes(
         line.append(timed_row("filter_mask[ml]", csrc + "filter_mask.cu", pk + "887",
                               l12.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
                               check_filter, filter_library(fargs)))
+    # phase 13: its launches (13a-13e), at its largest calls
+    rc, l13 = repeated["captured"], repeated["launches"]
+    for name, src, body, fn, plain, nbytes, check in (
+            ("merge_path_join", "merge_join.cu", "181", K.merge_path, K.merge_path_plain,
+             merge_path_bytes, check_merge_path),
+            ("lex_probe_select", "lex_probe.cu", "743", K.lex_probe_select,
+             K.lex_probe_select_plain, select_bytes, check_select),
+            ("lex_probe_validate", "lex_probe.cu", "783", K.lex_probe_validate,
+             K.lex_probe_validate_plain, validate_bytes, check_validate)):
+        line.append(timed_row(f"{name}[repeated]", csrc + src, pk + body, l13.get(name, 0),
+                              rc[name][1], fn, plain, nbytes, check))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -3758,9 +4209,13 @@ def main(argv=None) -> int:
     # ---- 12. the neurosymbolic ML layer
     ml = run_ml_phase(dev, lubm)
 
+    # ---- 13. the repeated-query layer
+    repeated = run_repeated_phase(dev, main_path, lubm, emp)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
-        main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, parent
+        main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, repeated,
+        parent,
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,10 +8,15 @@ with zero dependencies and zero background threads:
   context manager; nesting builds the parent chain on a thread-local
   stack;
 - finished spans land in one process-wide bounded ring buffer
-  (``collections.deque(maxlen=…)``), read with :func:`spans_snapshot`.
+  (``collections.deque(maxlen=…)``), read with :func:`spans_snapshot`;
+- :func:`trace_scope` installs a trace id (EXPLAIN ANALYZE reads its
+  spans back);
+- **baggage** is a tiny k→v dict riding along with the trace so the
+  executor can tell the device engine which template fingerprint it is
+  lowering without threading an argument through six call frames.
 
-Trace scopes, baggage and the JSONL export come with the serving slice,
-which reads them.  Everything is a no-op when
+The JSONL export comes with the serving slice, which reads it.
+Everything is a no-op when
 :func:`kolibrie_tpu_torch.obs.runtime.enabled` is False.
 """
 
@@ -21,6 +26,7 @@ import random
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 from kolibrie_tpu_torch.obs import runtime
@@ -88,12 +94,28 @@ class Span:
 def _ctx():
     ctx = getattr(_tls, "ctx", None)
     if ctx is None:
-        ctx = _tls.ctx = {"trace_id": None, "stack": []}
+        ctx = _tls.ctx = {"trace_id": None, "stack": [], "baggage": {}}
     return ctx
 
 
 def new_trace_id() -> str:
     return f"{_rand.getrandbits(128):032x}"
+
+
+@contextmanager
+def trace_scope(trace_id: Optional[str] = None):
+    """Install ``trace_id`` (or a fresh one) as this thread's active
+    trace.  Saves and restores any enclosing context, including baggage,
+    so scopes nest."""
+    ctx = _ctx()
+    prior = (ctx["trace_id"], ctx["stack"], ctx["baggage"])
+    ctx["trace_id"] = trace_id or new_trace_id()
+    ctx["stack"] = []
+    ctx["baggage"] = {}
+    try:
+        yield ctx["trace_id"]
+    finally:
+        ctx["trace_id"], ctx["stack"], ctx["baggage"] = prior
 
 
 class _NoopScope:
@@ -143,6 +165,7 @@ class _SpanScope:
             stack.pop()
         if self.implicit:
             ctx["trace_id"] = None
+            ctx["baggage"] = {}
         with _ring_lock:
             _ring.append(sp)
         return False
@@ -156,6 +179,18 @@ def span(name: str, **attrs):
     if not runtime.enabled():
         return _NOOP
     return _SpanScope(name, attrs)
+
+
+# ------------------------------------------------------------------ baggage
+
+
+def set_baggage(key: str, value: Any) -> None:
+    if runtime.enabled():
+        _ctx()["baggage"][key] = value
+
+
+def get_baggage(key: str, default: Any = None) -> Any:
+    return _ctx()["baggage"].get(key, default)
 
 
 # --------------------------------------------------------------------- ring

@@ -8,8 +8,9 @@ SPARQL engine's and the fixpoint's joins, and the payload entry
 lives in ``kolibrie_tpu_torch/csrc/`` as
 CUDA C++ with a plain C interface; :func:`build_kernels` compiles every
 source with ``nvcc`` for ``sm_90a`` (one process per source, all started
-together) into ``kolibrie_tpu_torch/_build/`` at first use, and ``ctypes``
-loads the shared libraries.
+together) into ``kolibrie_tpu_torch/_build/`` — or the directory
+``query.compile_cache.enable`` names — at first use, and ``ctypes`` loads
+the shared libraries.
 
 Routing has no switch: a wrapper given CPU tensors runs the kernel's plain
 version (the CPU tests hold it against the JAX package); given CUDA tensors
@@ -43,6 +44,7 @@ __all__ = [
     "reset_launches",
     "build_kernels",
     "build_log",
+    "set_build_dir",
     "filter_mask",
     "filter_mask_plain",
     "merge_join",
@@ -89,6 +91,8 @@ def reset_launches() -> None:
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
+_BUILD_DIR = [_BUILD]  # the compile cache may point the build elsewhere
+TARGET_ARCH = "sm_90a"
 _SOURCES = {
     "merge_join": "merge_join.cu",
     "lex_probe": "lex_probe.cu",
@@ -97,7 +101,7 @@ _SOURCES = {
 }
 _NVCC_FLAGS = [
     "-gencode",
-    "arch=compute_90a,code=sm_90a",
+    f"arch=compute_90a,code={TARGET_ARCH}",
     "-std=c++17",
     "-O3",
     "-shared",
@@ -109,6 +113,7 @@ _NVCC_FLAGS = [
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOG: Dict[str, str] = {}
 _BUILD_LOCK = threading.Lock()
+_BUILT_HERE: set = set()  # library paths nvcc built in this process
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -145,10 +150,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def set_build_dir(path) -> None:
+    """Build and load the kernel libraries in ``path`` from now on
+    (``query.compile_cache.enable`` calls this)."""
+    _BUILD_DIR[0] = Path(path)
+
+
 def _lib_path(name: str) -> Path:
     src = (_CSRC / _SOURCES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"lib{name}_{digest}.so"
+    return _BUILD_DIR[0] / f"lib{name}_{digest}.so"
+
+
+def _cache_note(hit: bool) -> None:
+    """Count a library of the enabled compile-cache directory."""
+    from kolibrie_tpu_torch.query import compile_cache
+
+    if compile_cache.enabled_dir() is not None:
+        compile_cache.note_library(hit)
 
 
 def build_kernels() -> Dict[str, str]:
@@ -158,7 +177,7 @@ def build_kernels() -> Dict[str, str]:
     shared-memory use per kernel).  Raises with the compiler's output when
     a build fails."""
     with _BUILD_LOCK:
-        _BUILD.mkdir(exist_ok=True)
+        _BUILD_DIR[0].mkdir(parents=True, exist_ok=True)
         procs = {}
         nvcc = None
         for name, src in _SOURCES.items():
@@ -185,6 +204,8 @@ def build_kernels() -> Dict[str, str]:
                 failed.append(f"{_SOURCES[name]}:\n{log}")
             else:
                 os.replace(tmp, out)
+                _BUILT_HERE.add(out)
+                _cache_note(False)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         return {name: _BUILD_LOG[name] for name in procs}
@@ -196,6 +217,8 @@ def _lib(name: str) -> ctypes.CDLL:
         path = _lib_path(name)
         if not path.exists():
             build_kernels()
+        if path not in _BUILT_HERE:
+            _cache_note(True)
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes

@@ -5,16 +5,18 @@ lexicographic binary searches that navigate the store's sorted orders at
 every WCOJ level.  Columns and probe keys are int64 carriers of u32 IDs
 (see :mod:`kolibrie_tpu_torch.backend`), so comparisons order exactly as
 the reference's unsigned columns.  The level evaluation itself lives in
-``optimizer/device_engine.py`` (``WcojSpec``).
+``optimizer/device_engine.py`` (``WcojSpec``); its numpy twin
+(``LoweredPlan.host_execute``) probes with :func:`host_lex_range`.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["lex_searchsorted", "lex_range"]
+__all__ = ["lex_searchsorted", "lex_range", "host_lex_range"]
 
 
 def _probe(cols, keys, mid) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,3 +84,54 @@ def lex_range(
         rlo = torch.where(ract & go, rmid + 1, rlo)
         rhi = torch.where(ract & ~go, rmid, rhi)
     return llo, rlo
+
+
+def _pack2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a.astype(np.uint64) << np.uint64(32)) | b.astype(np.uint64)
+
+
+def host_lex_range(
+    cols: Sequence[np.ndarray], keys: Sequence[np.ndarray]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy twin of two :func:`lex_searchsorted` calls: ``[lo, hi)`` row
+    ranges of each probe tuple in lexicographically sorted columns.
+
+    1/2-key probes pack into u64 words; 3-key probes ride a dense rank of
+    the leading pair (run-change cumsum), replacing the pair with its rank
+    so ``(rank << 32) | c2`` stays exact — an absent leading pair keeps
+    the plain pair insertion point (left == right there, so the range is
+    empty at the correct position).
+    """
+    n = len(cols[0]) if cols else 0
+    k = len(keys)
+    p = len(keys[0]) if k else 0
+    if n == 0 or k == 0:
+        z = np.zeros(p, dtype=np.int64)
+        return z, z.copy()
+    if k == 1:
+        packed, kp = cols[0], np.asarray(keys[0])
+    elif k == 2:
+        packed = _pack2(cols[0], cols[1])
+        kp = _pack2(np.asarray(keys[0]), np.asarray(keys[1]))
+    else:
+        p01 = _pack2(cols[0], cols[1])
+        change = np.empty(n, dtype=bool)
+        change[0] = True
+        change[1:] = p01[1:] != p01[:-1]
+        rank01 = np.cumsum(change) - 1
+        packed = (rank01.astype(np.uint64) << np.uint64(32)) | cols[2].astype(
+            np.uint64
+        )
+        kp01 = _pack2(np.asarray(keys[0]), np.asarray(keys[1]))
+        i = np.searchsorted(p01, kp01, side="left")
+        ic = np.minimum(i, n - 1)
+        present = p01[ic] == kp01
+        kp = (rank01[ic].astype(np.uint64) << np.uint64(32)) | np.asarray(
+            keys[2]
+        ).astype(np.uint64)
+        lo = np.where(present, np.searchsorted(packed, kp, side="left"), i)
+        hi = np.where(present, np.searchsorted(packed, kp, side="right"), i)
+        return lo.astype(np.int64), hi.astype(np.int64)
+    lo = np.searchsorted(packed, kp, side="left")
+    hi = np.searchsorted(packed, kp, side="right")
+    return lo.astype(np.int64), hi.astype(np.int64)

@@ -1,5 +1,5 @@
-"""Cost model (copy of ``kolibrie_tpu/optimizer/cost.py`` without the
-stats-advisor's learned cardinalities).
+"""Cost model (copy of ``kolibrie_tpu/optimizer/cost.py``: the stats
+advisor's measured cardinalities replace the guesses where it has them).
 
 Parity: ``streamertail_optimizer/cost/estimator.rs:20-29`` constants —
 table scan 100/row, index scan 1/row with a discount per bound position,
@@ -8,7 +8,10 @@ hash join 2/row, nested-loop 10/row — and cardinality estimation (:194+).
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 from kolibrie_tpu_torch.optimizer import plan as P
+from kolibrie_tpu_torch.optimizer.stats_advisor import phys_key
 
 TABLE_SCAN_COST_PER_ROW = 100.0
 INDEX_SCAN_COST_PER_ROW = 1.0
@@ -18,13 +21,44 @@ BOUND_POSITION_DISCOUNT = 10.0  # 10x per bound position (index prefix)
 PARALLEL_SPEEDUP = 4.0
 
 
+class _NoPattern:
+    """Variables-free stand-in for scan operands without a pattern."""
+
+    @staticmethod
+    def variables():
+        return ()
+
+
+_NO_PATTERN = _NoPattern()
+
+
 class CostEstimator:
-    def __init__(self, stats):
+    """``learned`` is an optional advisor snapshot — operator-key →
+    measured rows for the template being planned
+    (:meth:`kolibrie_tpu_torch.optimizer.stats_advisor.StatsAdvisor.view`).
+    When a node has a learned entry its MEASURED cardinality replaces the
+    stat/AGM guess; everything without a measurement keeps the static
+    model, so a cold (or advisor-off) plan is bit-identical to today."""
+
+    def __init__(self, stats, learned: Optional[Dict[str, float]] = None):
         self.stats = stats
+        self.learned = learned
 
     # -------------------------------------------------------- cardinalities
 
+    def _learned_rows(self, op) -> Optional[float]:
+        if not self.learned:
+            return None
+        key = phys_key(op)
+        if key is None:
+            return None
+        rows = self.learned.get(key)
+        return None if rows is None else max(float(rows), 1.0)
+
     def cardinality(self, op) -> float:
+        rows = self._learned_rows(op)
+        if rows is not None:
+            return rows
         if isinstance(op, (P.PhysIndexScan, P.PhysTableScan)):
             return self.stats.pattern_cardinality(op.pattern)
         if isinstance(op, (P.PhysHashJoin, P.PhysMergeJoin, P.PhysParallelJoin)):
@@ -86,6 +120,28 @@ class CostEstimator:
             self.cardinality(left), self.cardinality(right)
         )
 
+    def _wcoj_level_cost(self, op) -> Optional[float]:
+        """Measured WCOJ probe volume: each level's live intermediate
+        rows pay one probe round against every pattern containing the
+        level variable.  Requires a learned live count for EVERY level —
+        a partial funnel would bias the strategy comparison."""
+        if not self.learned or not op.elim_order:
+            return None
+        total = 0.0
+        for var in op.elim_order:
+            live = self.learned.get(f"wcoj:?{var}")
+            if live is None:
+                return None
+            accessors = sum(
+                1
+                for s in op.scans
+                if var in getattr(s, "pattern", _NO_PATTERN).variables()
+            )
+            total += max(float(live), 1.0) * HASH_JOIN_COST_PER_ROW * max(
+                accessors, 1
+            )
+        return total
+
     # ---------------------------------------------------------------- costs
 
     def estimate_cost(self, op) -> float:
@@ -121,6 +177,9 @@ class CostEstimator:
             # scans feed sorted-range probes, then every level pays one
             # leapfrog probe round over at most output-bound intermediates
             total = sum(self.estimate_cost(s) for s in op.scans)
+            measured = self._wcoj_level_cost(op)
+            if measured is not None:
+                return total + measured
             levels = max(len(op.elim_order), 1)
             return total + self.cardinality(op) * HASH_JOIN_COST_PER_ROW * levels
         if isinstance(op, (P.PhysFilter, P.PhysBind, P.PhysProjection)):

@@ -1,7 +1,6 @@
 """Streamertail — memoized top-down plan search (copy of
-``kolibrie_tpu/optimizer/planner.py`` without the stats-advisor feedback:
-plans come from the sampled statistics alone, as the reference's do with
-its advisor off, its default).
+``kolibrie_tpu/optimizer/planner.py``, with the stats advisor's learned
+cardinalities under ``KOLIBRIE_STATS_ADVISOR=auto``).
 
 Parity: ``streamertail_optimizer/optimizer.rs`` — ``find_best_plan``
 (:186-225) with memoization, star-query detection (:84-152), join reordering
@@ -15,7 +14,9 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Tuple
 
+from kolibrie_tpu_torch.obs import metrics as _obs_metrics
 from kolibrie_tpu_torch.optimizer import plan as P
+from kolibrie_tpu_torch.optimizer import stats_advisor as _sa
 from kolibrie_tpu_torch.optimizer.cost import CostEstimator
 from kolibrie_tpu_torch.query.ast import (
     BindClause,
@@ -27,6 +28,14 @@ from kolibrie_tpu_torch.query.ast import (
 STAR_MIN_PATTERNS = 3  # minimum patterns sharing a variable to form a star
 WCOJ_MIN_PATTERNS = 3  # smallest cycle; 'force' mode relaxes to 2
 
+# join-strategy selection (bounded label set: three literal strategies)
+_JOIN_STRATEGY = _obs_metrics.counter(
+    "kolibrie_planner_join_strategy_total",
+    "multi-pattern groups planned per join strategy",
+    labels=("strategy",),
+)
+
+
 def wcoj_mode() -> str:
     """Worst-case-optimal join routing mode (``KOLIBRIE_WCOJ``):
     ``auto`` (default) routes CYCLIC basic graph patterns to the WCOJ
@@ -37,6 +46,31 @@ def wcoj_mode() -> str:
     replays a plan cached under the other strategy."""
     mode = os.environ.get("KOLIBRIE_WCOJ", "auto").strip().lower()
     return mode if mode in ("auto", "off", "force") else "auto"
+
+
+def estimated_prefix_rows(plan) -> Optional[float]:
+    """Upper-bound row estimate for a physical plan's scan/join prefix:
+    the largest leaf-scan cardinality estimate in the tree.  The MQO
+    layer (optimizer/mqo.py) uses this as the pre-actuals worthiness
+    signal — ``rows × beneficiaries`` decides whether a shared prefix is
+    worth caching; once the prefix has actually run, the registry's
+    observed row counts replace it.  None when the plan has no estimated
+    scan leaves (VALUES-only shapes)."""
+    est: Optional[float] = None
+
+    def walk(node) -> None:
+        nonlocal est
+        if isinstance(node, (P.PhysIndexScan, P.PhysTableScan)):
+            e = float(node.estimated_rows or 0.0)
+            est = e if est is None else max(est, e)
+            return
+        for attr in ("left", "right", "child"):
+            c = getattr(node, attr, None)
+            if c is not None:
+                walk(c)
+
+    walk(plan)
+    return est
 
 
 def _gyo_cyclic(edge_sets: List[frozenset]) -> bool:
@@ -125,7 +159,13 @@ class Streamertail:
 
     def __init__(self, stats):
         self.stats = stats
-        self.estimator = CostEstimator(stats)
+        # measured cardinalities for the template being planned (None when
+        # KOLIBRIE_STATS_ADVISOR=off, no fingerprint on this thread, or the
+        # template is cold): a snapshot taken once per planner so one
+        # planning pass never sees a half-updated view
+        self.fp = _sa.current_fp()
+        self.learned = _sa.stats_advisor.view(self.fp)
+        self.estimator = CostEstimator(stats, self.learned)
         self._memo: Dict[int, Tuple[object, float]] = {}
 
     # ----------------------------------------------------------- public API
@@ -139,7 +179,35 @@ class Streamertail:
                 plan = P.PhysFilter(payload, plan)
             else:
                 plan = P.PhysBind(payload, plan)
+        if self.fp is not None and _sa.stats_advisor_mode() != "off":
+            # record what this plan is betting on: the advisor's drift
+            # check compares the next execution's actuals against exactly
+            # these numbers (docs/OPTIMIZER.md)
+            _sa.stats_advisor.record_estimates(
+                self.fp,
+                self._advisor_estimates(plan),
+                "learned" if self.learned else "agm",
+            )
         return plan
+
+    def _advisor_estimates(self, plan) -> Dict[str, float]:
+        """Per-operator-key cardinality estimates of a finished plan."""
+        ests: Dict[str, float] = {}
+
+        def walk(node) -> None:
+            key = _sa.phys_key(node)
+            if key is not None:
+                ests[key] = self.estimator.cardinality(node)
+            for attr in ("left", "right", "child"):
+                c = getattr(node, attr, None)
+                if c is not None:
+                    walk(c)
+            for s in getattr(node, "scans", ()) or ():
+                walk(s)
+
+        walk(plan)
+        ests["result"] = self.estimator.cardinality(plan)
+        return ests
 
     # ------------------------------------------------------------ internals
 
@@ -230,7 +298,17 @@ class Streamertail:
             return None
         if mode != "force" and not _gyo_cyclic(var_sets):
             return None
-        cards = [max(self.stats.pattern_cardinality(s.pattern), 1.0) for s in scans]
+        # measured scan cardinalities refine the elimination order: the
+        # leapfrog leader should be the variable whose covering pattern is
+        # OBSERVED smallest, not guessed smallest
+        cards = []
+        for s in scans:
+            c = max(self.stats.pattern_cardinality(s.pattern), 1.0)
+            if self.learned:
+                lv = self.learned.get("scan:" + _sa.pattern_sig(s.pattern))
+                if lv is not None:
+                    c = max(float(lv), 1.0)
+            cards.append(c)
         node = P.WcojNode(
             scans=[self._scan_for(s) for s in scans],
             elim_order=self._elimination_order(var_sets, cards),
@@ -276,8 +354,38 @@ class Streamertail:
 
         wcoj = self._try_wcoj(scans)
         if wcoj is not None:
+            # measured-cost reroute: once the stats advisor has actuals
+            # for this template, WCOJ-vs-Volcano is a COST comparison,
+            # not a shape rule — the AGM-misrouted cyclic queries (LUBM
+            # q9) come back to the binary-join path when the measured
+            # funnel volume says so.  Auto mode only; ``force`` stays a
+            # test/bench override and cold templates keep the structural
+            # routing (zero change vs the static router).
+            if self.learned and wcoj_mode() == "auto":
+                alt = self._binary_join_plan(scans)
+                if self._explore_binary_alt(alt):
+                    # fresh measurements: re-snapshot and re-order the
+                    # alternative under its now-measured cardinalities
+                    self.learned = (
+                        _sa.stats_advisor.view(self.fp) or self.learned
+                    )
+                    self.estimator = CostEstimator(self.stats, self.learned)
+                    alt = self._binary_join_plan(scans)
+                if self.estimator.estimate_cost(
+                    alt
+                ) < self.estimator.estimate_cost(wcoj):
+                    _JOIN_STRATEGY.labels(
+                        "star" if isinstance(alt, P.PhysStarJoin)
+                        else "volcano"
+                    ).inc()
+                    return alt
+            _JOIN_STRATEGY.labels("wcoj").inc()
             return wcoj
-        return self._binary_join_plan(scans)
+        plan = self._binary_join_plan(scans)
+        _JOIN_STRATEGY.labels(
+            "star" if isinstance(plan, P.PhysStarJoin) else "volcano"
+        ).inc()
+        return plan
 
     def _binary_join_plan(self, scans: List[object]) -> object:
         """The binary-join strategies: star when every scan shares the
@@ -319,6 +427,57 @@ class Streamertail:
             plan = self._best_join(plan, phys[nxt], join_vars)
             bound_vars |= vars_of[nxt]
         return plan
+
+    def _explore_binary_alt(self, alt) -> bool:
+        """One-time host-oracle exploration for the WCOJ-vs-Volcano cost
+        comparison.  A template that always routed WCOJ never observes
+        the binary alternative's intermediate cardinalities, so the
+        comparison would forever pit a MEASURED funnel against a static
+        guess (and the static pairwise-join estimates are exactly what
+        misroute).  When the alternative has unmeasured join keys, lower
+        it and run ONE host-numpy evaluation — the same pass every
+        device template already pays at capacity calibration — whose
+        exact join counts feed the advisor.  Self-extinguishing: the
+        next planning pass finds the keys learned and skips this.
+        Returns True when new measurements were fed."""
+        if self.fp is None or not self.learned:
+            return False
+        missing = False
+
+        def walk(node) -> None:
+            nonlocal missing
+            if isinstance(
+                node,
+                (P.PhysHashJoin, P.PhysMergeJoin, P.PhysParallelJoin,
+                 P.PhysNestedLoopJoin, P.PhysStarJoin),
+            ):
+                key = _sa.phys_key(node)
+                if key is not None and key not in self.learned:
+                    missing = True
+            for attr in ("left", "right", "child"):
+                c = getattr(node, attr, None)
+                if c is not None:
+                    walk(c)
+
+        walk(alt)
+        if not missing:
+            return False
+        db = self.stats.database()
+        if db is None:
+            return False
+        from kolibrie_tpu_torch.optimizer import device_engine as de
+
+        try:
+            lowered = de.lower_plan(db, alt)
+            # host binary searches + numpy joins only (no device I/O);
+            # calibrate_host feeds the advisor with the exact counts and
+            # pre-seeds the alternative's capacity cache for a flip
+            lowered.calibrate_host()
+        # exploration is advisory: an unlowerable or failing alternative
+        # just keeps the structural routing
+        except Exception:
+            return False
+        return True
 
     def _best_join(self, left, right, join_vars: List[str]) -> object:
         cl = self.estimator.cardinality(left)

@@ -133,12 +133,77 @@ class QueryEngine:
 
     def explain_device(self, sparql: str, exact_counts: bool = True,
                        analyze: bool = False) -> str:
-        """Physical-plan EXPLAIN of the device engine.  It needs the lowered
-        plan's host twin (``LoweredPlan.calibrate_host``) and the analyze
-        capture (``obs.analyze``), which come with ROADMAP A7 (the
-        StatsAdvisor feed) and A10 (serving); until then it raises."""
-        raise NotImplementedError(
-            "QueryEngine.explain_device needs LoweredPlan.calibrate_host and "
-            "obs.analyze (ROADMAP A7, A10), which kolibrie_tpu_torch does not "
-            "have yet"
-        )
+        """Physical-plan EXPLAIN of the device engine: the Streamertail plan
+        lowered to its spec tree, rendered with scan orders + live range
+        sizes, join keys + capacities, filters, quoted expansions and the
+        final projection.  ``exact_counts`` also runs the host twin to
+        annotate each join with its true match count (no device I/O).
+        Returns a 'host path: <reason>' line when the plan does not lower.
+
+        ``analyze=True`` is EXPLAIN ANALYZE: the lowered plan runs once
+        under an analyze capture, and the tree is annotated with
+        per-operator actual row counts, cap occupancy percentages and the
+        per-stage wall times of the run's spans."""
+        from kolibrie_tpu_torch.obs import analyze as obs_analyze
+        from kolibrie_tpu_torch.obs.spans import spans_snapshot, trace_scope
+        from kolibrie_tpu_torch.optimizer import mqo
+        from kolibrie_tpu_torch.optimizer import stats_advisor as _sa
+        from kolibrie_tpu_torch.optimizer.device_engine import Unsupported, lower_plan
+        from kolibrie_tpu_torch.optimizer.engine import resolve_pattern
+        from kolibrie_tpu_torch.optimizer.planner import Streamertail, build_logical_plan
+        from kolibrie_tpu_torch.query.executor import _clause_plans
+        from kolibrie_tpu_torch.query.parser import parse_combined_query
+        from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
+        from kolibrie_tpu_torch.query.template import fingerprint_query
+
+        self.db.register_prefixes_from_query(sparql)
+        # plan under the SAME template fingerprint the executor would use,
+        # so the planner consults (and the analyze run feeds) the stats
+        # advisor's learned cardinalities for this template
+        cq = parse_combined_query(sparql, self.db.prefixes)
+        fp, _ = fingerprint_query(cq)
+        _sa.set_current_fp(fp)
+        w = inline_subqueries(cq.select.where)
+        resolved = [resolve_pattern(self.db, p) for p in w.patterns]
+        logical = build_logical_plan(resolved, list(w.filters), [], w.values)
+        planner = Streamertail(self.db.get_or_build_stats())
+        plan = planner.find_best_plan(logical)
+        clauses = None if w.subqueries else _clause_plans(self.db, planner, w)
+        union_groups, optional_plans, anti_plans = clauses or ((), (), ())
+        try:
+            lowered = lower_plan(self.db, plan, anti_plans, union_groups, optional_plans)
+        except Unsupported as e:
+            return f"host path: {e}"
+        counts = lowered.calibrate_host() if exact_counts or analyze else None
+        mqo_line = mqo.describe_shared(self.db, lowered)
+        if not analyze:
+            out = lowered.describe(counts)
+            return out + "\n" + mqo_line if mqo_line else out
+        with obs_analyze.capture() as cap, trace_scope() as tid:
+            lowered.execute()
+        rec = cap.last("device") or {}
+        rep = _sa.stats_advisor.report(fp)
+        drift = rep["ops"] if rep else None
+        lines = [lowered.describe(counts, analyze=rec, drift=drift)]
+        if mqo_line:
+            lines.append(mqo_line)
+        if _sa.stats_advisor_mode() == "off":
+            lines.append("advisor: off")
+        elif rep is None:
+            lines.append("advisor: source=agm replans=0 drift=cold")
+        else:
+            lines.append(
+                f"advisor: source={rep['source']}"
+                f" replans={rep['replans']} drift={rep['drift']}"
+            )
+        if rec:
+            lines.append(f"source: {rec.get('source', '?')}")
+            lines.append(f"rows: {rec.get('rows', '?')}")
+        stage_spans = [
+            s for s in spans_snapshot(tid) if s["name"].startswith(("device.", "interp."))
+        ]
+        if stage_spans:
+            lines.append("device time:")
+            for s in stage_spans:
+                lines.append(f"  {s['name']}: {s['dur_ms']:.3f} ms")
+        return "\n".join(lines)

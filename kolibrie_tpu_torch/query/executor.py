@@ -36,11 +36,24 @@ post-passes:
   predicate that a SELECT names materialises first.
 
 WINDOW blocks raise :class:`Unsupported` with the construct's name.
+
+Repeated queries (the reference's plan cache and batching):
+
+- :func:`execute_query_volcano` keys every statement on the parsed AST
+  (query text + prefixes) and every SELECT on its constant-free template
+  fingerprint (:mod:`kolibrie_tpu_torch.query.template`): a repeat replays
+  the cached plan and lowered program (:func:`plan_cache_info` counts the
+  hits, misses and parameter rebinds); the slots are per store base
+  version, so mutations under the delta threshold keep them;
+- :func:`execute_queries_batched` runs same-template plain SELECTs as one
+  batched dispatch (``device_engine.execute_plan_batch``), the rest solo,
+  with MQO's transient beneficiaries registered for the solo tail.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -58,12 +71,18 @@ from kolibrie_tpu_torch.ops.join import (
     table_to_host,
 )
 from kolibrie_tpu_torch.ops.unique import unique_table
+from kolibrie_tpu_torch.obs import metrics as obs_metrics
+from kolibrie_tpu_torch.obs.spans import set_baggage, span
 from kolibrie_tpu_torch.optimizer.device_engine import (
     Unsupported,
+    clause_replayable,
+    execute_plan_batch,
     lower_plan,
+    try_device_execute,
     try_device_execute_aggregated,
     try_device_execute_ordered,
 )
+from kolibrie_tpu_torch.optimizer.stats_advisor import set_current_fp as _sa_set_current_fp
 from kolibrie_tpu_torch.optimizer.engine import ExecutionEngine, resolve_pattern
 from kolibrie_tpu_torch.optimizer.planner import Streamertail, build_logical_plan
 from kolibrie_tpu_torch.query import ast as A
@@ -83,13 +102,41 @@ from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
 __all__ = [
     "Unsupported",
     "execute_query_volcano",
+    "execute_queries_batched",
     "execute_query",
     "execute_combined",
     "eval_where",
     "format_results",
+    "plan_cache_info",
 ]
 
 Rows = List[List[str]]
+
+_PARSE_LAT = obs_metrics.histogram(
+    "kolibrie_query_parse_seconds", "SPARQL parse + template fingerprint time"
+)
+_PLAN_LAT = obs_metrics.histogram("kolibrie_query_plan_seconds", "Streamertail plan search time")
+_PLAN_CACHE_EVENTS = obs_metrics.counter(
+    "kolibrie_plan_cache_events_total",
+    "plan-cache lookups by outcome",
+    labels=("event",),
+)
+_BATCHED_QUERIES = obs_metrics.counter(
+    "kolibrie_batched_queries_total",
+    "queries answered through a batched same-template dispatch",
+)
+_PLAN_CACHE_HIT = _PLAN_CACHE_EVENTS.labels("hit")
+_PLAN_CACHE_MISS = _PLAN_CACHE_EVENTS.labels("miss")
+_PLAN_CACHE_REBIND = _PLAN_CACHE_EVENTS.labels("param_rebind")
+_PLAN_CACHE_EVICTION = _PLAN_CACHE_EVENTS.labels("eviction")
+
+
+def _interp_mode() -> str:
+    """Current ``KOLIBRIE_PLAN_INTERP`` routing mode (lazy import: the
+    interpreter module pulls in the device engine)."""
+    from kolibrie_tpu_torch.optimizer.plan_interp import plan_interp_mode
+
+    return plan_interp_mode()
 
 
 def _filter_vars(expr) -> List[str]:
@@ -163,15 +210,23 @@ def _lower_or_none(db, plan, anti_plans=(), union_groups=(), optional_plans=()):
 
 
 def eval_where(
-    db, where: WhereClause, use_optimizer: bool = True, prebuilt_plan=None, prebuilt_lowered=None
+    db,
+    where: WhereClause,
+    use_optimizer: bool = True,
+    prebuilt_plan=None,
+    prebuilt_lowered=None,
+    capture=None,
 ) -> BindingTable:
     """Evaluate a group graph pattern to a binding table (IDs).
 
     ``use_optimizer=False`` joins the patterns in textual order
     (:func:`_naive_eval`).  ``prebuilt_plan`` / ``prebuilt_lowered``: the
-    physical plan and the device lowering the aggregate route already made
-    for this WHERE (the lowering ``False`` when it declined), so neither
-    runs twice."""
+    physical plan and the device lowering already made for this WHERE (by
+    the aggregate route, or replayed from the plan cache; the lowering
+    ``False`` when it declined), so neither runs twice.  ``capture``:
+    plan-cache entry dict — the plan and the lowered program (or ``False``
+    for a failed lowering) are recorded into it for the next identical
+    query."""
     # fold plain sub-SELECTs into the group before planning: one device
     # plan instead of materialize-then-join on the host
     where = inline_subqueries(where)
@@ -187,9 +242,13 @@ def eval_where(
         planner = Streamertail(db.get_or_build_stats())
         plan = prebuilt_plan
         if plan is None:
-            plan = planner.find_best_plan(
-                build_logical_plan(resolved, plan_filters, [], where.values)
-            )
+            logical = build_logical_plan(resolved, plan_filters, [], where.values)
+            with span("query.plan"):
+                t0 = time.perf_counter()
+                plan = planner.find_best_plan(logical)
+                _PLAN_LAT.observe(time.perf_counter() - t0)
+        if capture is not None:
+            capture["plan"] = plan
         table = None
         if prebuilt_lowered is not None and prebuilt_lowered is not False:
             table = prebuilt_lowered.execute()
@@ -214,16 +273,13 @@ def eval_where(
                         else:
                             main_plan = None
                     if main_plan is not False:
-                        lowered = _lower_or_none(
-                            db, main_plan, anti_plans, union_groups, optional_plans
+                        table = try_device_execute(
+                            db, main_plan, anti_plans, union_groups, optional_plans,
+                            capture=capture,
                         )
-                        if lowered is not None:
-                            table = lowered.execute()
-                            fused_clauses = True
+                        fused_clauses = table is not None
             if table is None:
-                lowered = _lower_or_none(db, plan)
-                if lowered is not None:
-                    table = lowered.execute()
+                table = try_device_execute(db, plan, capture=capture)
         if table is None:
             # the lowering declined this plan: the reference's host engine,
             # run on the database's device
@@ -334,15 +390,28 @@ def _is_aggregate(q: SelectQuery) -> bool:
     return bool(q.group_by) or any(i.kind == "agg" for i in q.select)
 
 
-def eval_select_to_table(db, q: SelectQuery, use_optimizer: bool = True) -> BindingTable:
+def eval_select_to_table(
+    db, q: SelectQuery, use_optimizer: bool = True, cache_entry=None
+) -> BindingTable:
     """Run a SELECT down to a binding table projected to its variables
-    (aggregates resolved)."""
+    (aggregates resolved).  ``cache_entry``: plan-cache slot (see
+    :func:`_plan_cache_entry`) — a populated slot's plan and lowered
+    program skip the planner and the lowering; a fresh one captures
+    them."""
     prebuilt_plan = prebuilt_lowered = None
     if _is_aggregate(q) and use_optimizer:
-        table, prebuilt_plan, prebuilt_lowered = _try_device_aggregate(db, q)
+        table, prebuilt_plan, prebuilt_lowered = _try_device_aggregate(db, q, cache_entry)
         if table is not None:
             return unique_table(table) if q.distinct else table
-    table = eval_where(db, q.where, use_optimizer, prebuilt_plan, prebuilt_lowered)
+        cache_entry = None  # aggregate fallback: prebuilts already in hand
+    if cache_entry is not None:
+        if cache_entry["plan"] is not None:
+            prebuilt_plan = cache_entry["plan"]
+        if cache_entry["lowered"] is not None:
+            prebuilt_lowered = cache_entry["lowered"]
+    table = eval_where(
+        db, q.where, use_optimizer, prebuilt_plan, prebuilt_lowered, capture=cache_entry
+    )
     if _is_aggregate(q):
         table = _group_and_aggregate_table(db, table, q)
     elif not q.select_all():
@@ -363,15 +432,40 @@ def eval_select_to_table(db, q: SelectQuery, use_optimizer: bool = True) -> Bind
 
 
 def _try_device_aggregate(
-    db, q: SelectQuery
+    db, q: SelectQuery, cache_entry=None
 ) -> Tuple[Optional[BindingTable], Optional[object], Optional[object]]:
     """Aggregate query fused on the device (plan + GROUP BY segment-reduce;
     the host reads one row per group).  Returns ``(table, plan,
     lowered)``: table None → :func:`eval_where` + host aggregation, which
-    reuses the returned plan and lowering (``False`` = lowering failed)."""
+    reuses the returned plan and lowering (``False`` = lowering failed).
+    ``cache_entry``: plan-cache slot — a populated slot replays its plan
+    and lowered program; a fresh one captures them."""
     w = inline_subqueries(q.where)  # the fold eval_where applies
     if w.subqueries or w.binds or w.window_blocks or not w.patterns:
         return None, None, None
+    if cache_entry is not None and cache_entry["lowered"] is False:
+        # lowering known-failed for this template and state; the sentinel
+        # survives parameter rebinds (lowerability is structural)
+        return None, cache_entry["plan"], False
+    if cache_entry is not None and cache_entry["plan"] is not None:
+        cplan, clow = cache_entry["plan"], cache_entry["lowered"]
+        if clow is not None:
+            if not clause_replayable(clow, w):
+                # plain-BGP lowering for a clause-carrying WHERE: replay that
+                # route (device BGP + host clauses + host aggregation)
+                return None, cplan, clow
+            return try_device_execute_aggregated(db, cplan, q, lowered=clow), cplan, clow
+    table, plan, lowered = _plan_device_aggregate(db, q, w)
+    if cache_entry is not None:
+        cache_entry["plan"] = plan
+        cache_entry["lowered"] = lowered
+    return table, plan, lowered
+
+
+def _plan_device_aggregate(db, q: SelectQuery, w: WhereClause):
+    """Plan and lower an aggregate query's WHERE (the fold ``w``) and run
+    the device aggregate: ``(table, plan, lowered)`` as
+    :func:`_try_device_aggregate` returns them."""
     resolved = [resolve_pattern(db, p) for p in w.patterns]
     planner = Streamertail(db.get_or_build_stats())
     plan = planner.find_best_plan(build_logical_plan(resolved, list(w.filters), [], w.values))
@@ -644,13 +738,19 @@ def format_results(db, table: BindingTable, q: SelectQuery, sort_rows: bool = Fa
     return out.tolist()
 
 
-def execute_select(db, q: SelectQuery, use_optimizer: bool = True) -> Rows:
-    if use_optimizer and q.order_by and q.limit is not None:
-        # ORDER BY + LIMIT on the device: top-k sort, O(limit) readback
-        rows = try_device_execute_ordered(db, q)
+def execute_select(db, q: SelectQuery, use_optimizer: bool = True, cache_entry=None) -> Rows:
+    if (
+        use_optimizer
+        and q.order_by
+        and q.limit is not None
+        and not (cache_entry is not None and cache_entry.get("ordered_failed"))
+    ):
+        # ORDER BY + LIMIT on the device: top-k sort, O(limit) readback.
+        # ``ordered_failed`` is the sticky per-template negative
+        rows = try_device_execute_ordered(db, q, cache_entry=cache_entry)
         if rows is not None:
             return rows
-    table = eval_select_to_table(db, q, use_optimizer)
+    table = eval_select_to_table(db, q, use_optimizer, cache_entry=cache_entry)
     table = _order_table(db, table, q.order_by)
     rows = format_results(db, table, q, sort_rows=not q.order_by)
     start = q.offset or 0
@@ -745,13 +845,29 @@ def _materialize_neural_for_select(db, select: SelectQuery) -> None:
     )
 
 
-def execute_combined(db, cq: CombinedQuery) -> Rows:
+def execute_combined(db, cq: CombinedQuery, cache_entry=None) -> Rows:
     """Run a parsed statement (the reference's ``execute_combined``): the
     MODEL and NEURAL RELATION declarations, TRAIN, ML.PREDICT, then RULE
     definitions, DELETE and INSERT, then the neural predicates the SELECT
     names and the SELECT.  REGISTER and RETRIEVE carry nothing to run here,
-    as in the reference."""
+    as in the reference.  ``cache_entry``: the plan-cache slot a plain
+    SELECT replays."""
     db.prefixes.update(cq.prefixes)
+    if cache_entry is not None and (
+        cq.register is not None
+        or cq.rules
+        or cq.insert is not None
+        or cq.delete is not None
+        or cq.models
+        or cq.neural_relations
+        or cq.train_decls
+        or cq.ml_predict is not None
+        or db.neural_relations
+    ):
+        # updates and declarations mutate the database (or registries the
+        # slot's state key does not cover), and neural materialisation
+        # inserts triples mid-execution: only plain SELECTs reuse plans
+        cache_entry = None
     if cq.models or cq.neural_relations or cq.train_decls or cq.ml_predict:
         from kolibrie_tpu_torch.ml import runtime as ml_runtime
 
@@ -772,15 +888,424 @@ def execute_combined(db, cq: CombinedQuery) -> Rows:
         # neural predicates referenced anywhere in the query materialize as
         # ordinary triples first (neural_relations.rs parity)
         _materialize_neural_for_select(db, cq.select)
-        return execute_select(db, cq.select)
+        return execute_select(db, cq.select, cache_entry=cache_entry)
     return []
+
+
+# --------------------------------------------------------------------------
+# The plan cache
+# --------------------------------------------------------------------------
+
+_PLAN_CACHE_MAX = 128  # parsed-AST entries (query text → template key)
+
+_TEMPLATE_CACHE_MAX = 64  # plan templates (fingerprint → per-state slots)
+
+_PLAN_STATES_MAX = 4  # per-template (store version, udfs) slots kept
+
+
+def _plan_caches(db):
+    """The two cache levels + counters, lazily attached to the database."""
+    from collections import OrderedDict
+
+    parse = db.__dict__.get("_plan_cache")
+    if parse is None:
+        parse = db.__dict__["_plan_cache"] = OrderedDict()
+    templates = db.__dict__.get("_template_cache")
+    if templates is None:
+        templates = db.__dict__["_template_cache"] = OrderedDict()
+    stats = db.__dict__.get("_plan_cache_stats")
+    if stats is None:
+        stats = db.__dict__["_plan_cache_stats"] = {
+            "hits": 0,
+            "misses": 0,
+            "param_rebinds": 0,
+            "evictions": 0,
+            "batched": 0,
+            "batch_groups": 0,
+        }
+    return parse, templates, stats
+
+
+def _unresolved_params(db, params) -> tuple:
+    """The string constants among ``params`` with no dictionary id yet.  A
+    plan built while any of these were unknown embeds a can-never-match
+    sentinel for them, so it must be rebuilt once the term gets interned —
+    mutation batches under the delta threshold do not move
+    ``base_version``, so the slot key alone cannot notice."""
+    dic = db.dictionary
+    return tuple(
+        p for p in params if isinstance(p, str) and dic.lookup(db.expand_term(p)) is None
+    )
+
+
+def _plan_cache_entry(db, sparql: str):
+    """The database's plan cache.  Three granularities:
+
+    - the parsed AST is keyed by (query text, prefix map): it survives
+      store mutations, so INSERT/SELECT workloads never re-parse; parsing
+      also yields the constant-free *template* fingerprint and its
+      parameter tuple (:func:`kolibrie_tpu_torch.query.template.fingerprint_query`);
+    - plan slots are keyed by the TEMPLATE fingerprint, not the text: the
+      constant-variants of one query shape share one entry (and one spec
+      tree: the lowered program carries its constants in the parameter
+      vectors);
+    - within a template, the physical plan + lowered program live in
+      per-state slots keyed by (store BASE version, UDF registry): since
+      mutation batches under the delta threshold advance only
+      ``delta_epoch``, plans survive insert/delete traffic, and each
+      execution's scan ranges and device delta segment carry the fresh
+      state.
+
+    A slot replays its plan and lowered program only when its parameter
+    binding matches the incoming one; on mismatch the plan is rebuilt
+    (host-side) and counted as a ``param_rebind``.  Known-failure
+    sentinels (``lowered is False``, ``ordered_failed``) are properties of
+    the template and survive rebinds.  Both levels are LRU-bounded.
+    Returns ``(entry, slot)``: ``entry`` carries the parsed ``cq``,
+    ``slot`` has the ``plan`` / ``lowered`` keys ``eval_select_to_table``
+    consumes."""
+    from kolibrie_tpu_torch.optimizer.mqo import mqo_mode
+    from kolibrie_tpu_torch.optimizer.planner import wcoj_mode
+    from kolibrie_tpu_torch.optimizer.stats_advisor import stats_advisor, stats_advisor_mode
+    from kolibrie_tpu_torch.query.compile_cache import record_template
+    from kolibrie_tpu_torch.query.template import fingerprint_query
+
+    parse, templates, stats = _plan_caches(db)
+    prefix_sig = tuple(sorted(db.prefixes.items()))
+    # the join-strategy, interpreter-routing, MQO sharing and
+    # stats-advisor modes are part of the template fingerprint; a mode
+    # flip after parse must refingerprint, not replay the old-mode plan
+    env_sig = (wcoj_mode(), _interp_mode(), mqo_mode(), stats_advisor_mode())
+    ent = parse.get(sparql)
+    if ent is None or ent["prefix_sig"] != prefix_sig or ent["env_sig"] != env_sig:
+        ent = {"prefix_sig": prefix_sig, "env_sig": env_sig, "cq": None, "fp": None, "params": ()}
+        parse[sparql] = ent
+    parse.move_to_end(sparql)
+    while len(parse) > _PLAN_CACHE_MAX:
+        parse.popitem(last=False)
+    if ent["cq"] is None:
+        with span("query.parse"):
+            t0 = time.perf_counter()
+            ent["cq"] = parse_combined_query(sparql, db.prefixes)
+            ent["fp"], ent["params"] = fingerprint_query(ent["cq"])
+            _PARSE_LAT.observe(time.perf_counter() - t0)
+    fp, params = ent["fp"], ent["params"]
+    # feed the prewarm manifest: per-template popularity + one
+    # representative query text the warmer can replay
+    record_template(fp, sparql)
+    tent = templates.get(fp)
+    if tent is None:
+        tent = templates[fp] = {"by_state": {}, "hits": 0, "misses": 0}
+    templates.move_to_end(fp)
+    while len(templates) > _TEMPLATE_CACHE_MAX:
+        templates.popitem(last=False)
+        stats["evictions"] += 1
+        _PLAN_CACHE_EVICTION.inc()
+    version = db.store.base_version
+    state = (version, db.__dict__.get("_udf_version", 0))
+    slot = tent["by_state"].get(state)
+    if slot is None:
+        # stale-base-version slots pin lowered programs over OLD store
+        # orders: drop them, keeping only the live base's variants
+        for k in [k for k in tent["by_state"] if k[0] != version]:
+            tent["by_state"].pop(k)
+        slot = {
+            "plan": None,
+            "lowered": None,
+            "params": params,
+            "ordered_failed": False,
+            "unresolved": _unresolved_params(db, params),
+            "quoted_n": len(db.quoted),
+        }
+        tent["by_state"][state] = slot
+        while len(tent["by_state"]) > _PLAN_STATES_MAX:
+            tent["by_state"].pop(next(iter(tent["by_state"])))
+        stats["misses"] += 1
+        tent["misses"] += 1
+        _PLAN_CACHE_MISS.inc()
+    elif slot["params"] != params:
+        # same template, new constants: the cached plan and lowered program
+        # embed the OLD binding — drop them and rebind.  The re-lowered
+        # program runs the same spec tree.  Known-failure sentinels stay.
+        failed = slot["lowered"] is False
+        slot["plan"] = None
+        slot["lowered"] = False if failed else None
+        slot["params"] = params
+        slot["unresolved"] = _unresolved_params(db, params)
+        slot["quoted_n"] = len(db.quoted)
+        stats["param_rebinds"] += 1
+        tent["misses"] += 1
+        _PLAN_CACHE_REBIND.inc()
+    else:
+        # same binding — but a constant UNKNOWN when the slot's plan was
+        # built may have been interned since (only delta_epoch moved): the
+        # embedded can-never-match sentinel is now wrong.  Rebind exactly
+        # like a parameter change.
+        rebind = False
+        unres = slot.get("unresolved", ())
+        if unres:
+            still = _unresolved_params(db, unres)
+            if len(still) != len(unres):
+                slot["unresolved"] = still
+                rebind = True
+        if not rebind and slot.get("quoted_n") != len(db.quoted):
+            # unknown quoted-triple ids resolve through db.quoted, not the
+            # dictionary; only plans that embed one need a rebuild
+            low = slot["lowered"]
+            if low is not None and low is not False:
+                checks = getattr(low, "const_checks", ()) or ()
+                scans = getattr(low, "scan_descs", ()) or ()
+                if any(t is None for cc in checks for t in cc) or any(
+                    c is not None and c < 0 for _n, cs in scans for c in cs
+                ):
+                    rebind = True
+            slot["quoted_n"] = len(db.quoted)
+        if rebind:
+            failed = slot["lowered"] is False
+            slot["plan"] = None
+            slot["lowered"] = False if failed else None
+            stats["param_rebinds"] += 1
+            tent["misses"] += 1
+            _PLAN_CACHE_REBIND.inc()
+        else:
+            stats["hits"] += 1
+            tent["hits"] += 1
+            _PLAN_CACHE_HIT.inc()
+    # drift-triggered replan: the stats advisor bumps a template's plan
+    # generation when observed cardinalities drift past the estimates the
+    # cached plan was built from; a stale stamp drops the plan and the
+    # lowered program, and the rebuild replans with the tuned stats
+    gen = stats_advisor.plan_gen(fp)
+    if slot.get("advisor_gen") is None:
+        slot["advisor_gen"] = gen
+    elif slot["advisor_gen"] != gen:
+        slot["plan"] = None
+        slot["lowered"] = None
+        slot["ordered_failed"] = False
+        slot["advisor_gen"] = gen
+        stats["advisor_replans"] = stats.get("advisor_replans", 0) + 1
+        stats_advisor.note_replan(fp)
+    return ent, slot
+
+
+def plan_cache_info(db) -> dict:
+    """Inspection snapshot of the two-level plan cache: occupancy,
+    hit/miss/eviction/rebind counters, sticky-failure counts, and a
+    per-template breakdown (keyed by fingerprint)."""
+    parse, templates, stats = _plan_caches(db)
+    per = {}
+    sticky = 0
+    for fp, tent in templates.items():
+        failed = sum(1 for s in tent["by_state"].values() if s["lowered"] is False)
+        sticky += failed
+        # where the template's most recent device run came from: "mqo",
+        # "interp", "compiled" or "disk" — None when nothing lowered ran
+        source = None
+        for s in tent["by_state"].values():
+            low = s.get("lowered")
+            if low is not None and low is not False:
+                source = getattr(low, "last_source", None) or source
+        per[fp] = {
+            "states": len(tent["by_state"]),
+            "hits": tent["hits"],
+            "misses": tent["misses"],
+            "failed_states": failed,
+            "source": source,
+        }
+    return {
+        "parse_entries": len(parse),
+        "templates": len(templates),
+        "hits": stats["hits"],
+        "misses": stats["misses"],
+        "param_rebinds": stats["param_rebinds"],
+        "evictions": stats["evictions"],
+        "batched": stats["batched"],
+        "batch_groups": stats["batch_groups"],
+        "sticky_failures": sticky,
+        "sentinel_expiries": stats.get("sentinel_expiries", 0),
+        "advisor_replans": stats.get("advisor_replans", 0),
+        "per_template": per,
+        "limits": {
+            "parse": _PLAN_CACHE_MAX,
+            "templates": _TEMPLATE_CACHE_MAX,
+            "states": _PLAN_STATES_MAX,
+        },
+    }
+
+
+# --------------------------------------------------------------------------
+# Batched dispatch
+# --------------------------------------------------------------------------
+
+
+def _batchable_select(db, cq):
+    """``(q, folded_where)`` when the query is a plain SELECT the batched
+    dispatch can run — one BGP + filters, projection of variables only,
+    all post-processing (DISTINCT, LIMIT/OFFSET, formatting) host-side per
+    member.  ``None`` → run it solo."""
+    if (
+        cq.select is None
+        or cq.register is not None
+        or cq.rules
+        or cq.insert is not None
+        or cq.delete is not None
+        or cq.models
+        or cq.neural_relations
+        or cq.train_decls
+        or cq.ml_predict is not None
+        or cq.retrieve is not None
+    ):
+        return None
+    if db.neural_relations:
+        return None
+    q = cq.select
+    if q.group_by or q.order_by or any(i.kind != "var" for i in q.select):
+        return None
+    w = inline_subqueries(q.where)
+    if (
+        w.subqueries
+        or w.binds
+        or w.window_blocks
+        or w.unions
+        or w.optionals
+        or w.minus
+        or w.not_blocks
+        or w.values is not None
+        or not w.patterns
+    ):
+        return None
+    return q, w
+
+
+def _finish_select_table(db, q: SelectQuery, table: BindingTable) -> Rows:
+    """The host tail of a plain SELECT (projection → DISTINCT → format →
+    LIMIT/OFFSET), as eval_select_to_table + execute_select apply it."""
+    if not q.select_all():
+        keep = [i.var for i in q.select if i.kind == "var" and i.var in table]
+        table = {v: table[v] for v in keep}
+    elif any(k.startswith("__") for k in table):
+        table = {k: v for k, v in table.items() if not k.startswith("__")}
+    if q.distinct:
+        table = unique_table(table)
+    rows = format_results(db, table, q, sort_rows=True)
+    start = q.offset or 0
+    end = start + q.limit if q.limit is not None else None
+    return rows[start:end]
+
+
+def _lower_bgp(db, w: WhereClause):
+    """Plan and lower a batchable member's folded WHERE."""
+    resolved = [resolve_pattern(db, p) for p in w.patterns]
+    logical = build_logical_plan(resolved, list(w.filters), [], None)
+    plan = Streamertail(db.get_or_build_stats()).find_best_plan(logical)
+    return plan, lower_plan(db, plan)
+
+
+def execute_queries_batched(db, queries: List[str]) -> List[Rows]:
+    """Execute a batch of queries, dispatching same-template plain SELECTs
+    as ONE batched run (``execute_plan_batch``: the members' plan bodies
+    back to back, one readback of their counts per attempt) instead of
+    one run per query.  Everything else — singleton templates, aggregates,
+    ordered queries, updates — runs solo through
+    :func:`execute_query_volcano`.  Results come back in input order;
+    per-query host post-processing is the solo path's."""
+    results: List[Optional[Rows]] = [None] * len(queries)
+    for text in queries:
+        db.register_prefixes_from_query(text)
+    groups: Dict[str, List[int]] = {}
+    members: List[Optional[tuple]] = [None] * len(queries)
+    for i, text in enumerate(queries):
+        ent, slot = _plan_cache_entry(db, text)
+        if slot["lowered"] is False:
+            continue  # template known un-lowerable: solo (host) path
+        eligible = _batchable_select(db, ent["cq"])
+        if eligible is None:
+            continue
+        q, w = eligible
+        members[i] = (ent, slot, q, w)
+        groups.setdefault(ent["fp"], []).append(i)
+    _, _, stats = _plan_caches(db)
+    for fp, idxs in groups.items():
+        if len(idxs) < 2:
+            continue  # solo dispatch is already optimal for singletons
+        if _interp_mode() == "force":
+            # forced interpreter routing: members run solo through the
+            # interpreter instead of the specialized batch
+            continue
+        set_baggage("template", fp)
+        _sa_set_current_fp(fp)
+        lowereds = []
+        try:
+            for i in idxs:
+                ent, slot, q, w = members[i]
+                plan, lowered = _lower_bgp(db, w)
+                lowereds.append((i, q, plan, lowered))
+            tables = execute_plan_batch([low for _, _, _, low in lowereds])
+        except Unsupported:
+            continue  # shape or plan divergence inside the group: solo path
+        stats["batched"] += len(idxs)
+        stats["batch_groups"] += 1
+        _BATCHED_QUERIES.inc(len(idxs))
+        for (i, q, plan, lowered), table in zip(lowereds, tables):
+            ent, slot, _, _ = members[i]
+            if slot["params"] == ent["params"] and slot["lowered"] is None:
+                slot["plan"], slot["lowered"] = plan, lowered
+            results[i] = _finish_select_table(db, q, table)
+    # multi-query sharing for the solo tail: register every still-pending
+    # member's prefix fingerprint as a transient beneficiary, so the MQO
+    # layer sees the batch's full fan-out before the first member runs
+    from kolibrie_tpu_torch.optimizer import mqo as _mqo
+
+    transient_fps: List[str] = []
+    pending = [i for i in range(len(queries)) if results[i] is None]
+    if len(pending) >= 2 and _mqo.mqo_mode() != "off":
+        for i in pending:
+            fp = _solo_prefix_fp(db, queries[i])
+            if fp is not None:
+                transient_fps.append(fp)
+    with _mqo.transient_scope(db, transient_fps):
+        for i, text in enumerate(queries):
+            if results[i] is None:
+                results[i] = execute_query_volcano(text, db)
+    return results
+
+
+def _solo_prefix_fp(db, text: str) -> Optional[str]:
+    """MQO prefix fingerprint for one batch member, or None when the query
+    is outside the batchable/shareable shape.  A member whose shape
+    declines here is simply not registered as a beneficiary; its own
+    evaluation reports any real error in input order."""
+    from kolibrie_tpu_torch.optimizer import mqo as _mqo
+
+    ent, _slot = _plan_cache_entry(db, text)
+    eligible = _batchable_select(db, ent["cq"])
+    if eligible is None:
+        return None
+    _q, w = eligible
+
+    def _lower():
+        try:
+            return _lower_bgp(db, w)[1]
+        except Unsupported:
+            return None
+
+    return _mqo.prefix_fp_for(db, ent["fp"], _lower)
 
 
 def execute_query_volcano(sparql: str, db) -> Rows:
     """Run one SPARQL statement on ``db``'s device and return the SELECT's
-    rows as display strings (the reference's ``execute_query_volcano``)."""
+    rows as display strings (the reference's ``execute_query_volcano``),
+    through the plan cache (:func:`_plan_cache_entry`)."""
     db.register_prefixes_from_query(sparql)
-    return execute_combined(db, parse_combined_query(sparql, db.prefixes))
+    ent, slot = _plan_cache_entry(db, sparql)
+    fp = ent["fp"]
+    # baggage lets device_engine label its timings and key the capacity
+    # advisor with the template fingerprint without threading it through
+    # eval_where; the stats advisor has its own channel
+    set_baggage("template", fp)
+    _sa_set_current_fp(fp)
+    with span("query.execute", template=fp, path="device"):
+        return execute_combined(db, ent["cq"], cache_entry=slot)
 
 
 def execute_query(sparql: str, db) -> Rows:

@@ -519,6 +519,9 @@ class SparqlDatabase:
     def register_udf(self, name: str, fn: Callable) -> None:
         """Parity: ``sparql_database.rs:3164`` UDF registry."""
         self.udfs[name.upper()] = fn
+        # re-registering a name can change semantics of an already-cached
+        # plan whose filters bound the old function: bump the cache state
+        self._udf_version = self.__dict__.get("_udf_version", 0) + 1
 
     # --------------------------------------------------------- numeric cache
 

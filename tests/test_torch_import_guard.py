@@ -120,6 +120,27 @@ assert port.execute_query_volcano(
     'TARGET { ?m e:isHot ?l } LOSS bce EPOCHS 30 BATCH_SIZE 8 LEARNING_RATE 0.1 }', ml) == []
 rows = port.execute_query_volcano("SELECT ?m WHERE { ?m <http://e/isHot> ?v }", ml)
 assert sorted(rows) == [[f"http://e/m{i}"] for i in (1, 3, 5, 7)], rows
+from kolibrie_tpu_torch.obs import analyze
+from kolibrie_tpu_torch.optimizer import device_engine, mqo, plan_interp, stats_advisor
+from kolibrie_tpu_torch.query import compile_cache, prewarm, template
+from kolibrie_tpu_torch.query.engine import QueryEngine
+from kolibrie_tpu_torch.query.executor import execute_queries_batched, plan_cache_info
+rq = "SELECT ?x ?y WHERE { ?x <http://e/knows> ?y . ?y <http://e/knows> ?z }"
+pq = device_engine.PreparedQuery(db, rq)
+pq.calibrate()
+before = device_engine.fetch_counters()
+out = pq.run()
+sums, nrows = pq.run_amortized(3)
+assert device_engine.fetch_counters() == before
+assert pq.fetch(out) == sorted(port.execute_query_volcano(rq, db)), pq.fetch(out)
+assert execute_queries_batched(db, [rq, rq]) == [pq.fetch(out)] * 2
+with plan_interp.override_mode("force"), mqo.override_mqo_mode("force"):
+    assert port.execute_query_volcano(rq + " LIMIT 5", db) == pq.fetch(out)
+with stats_advisor.override_mode("auto"), analyze.capture() as cap:
+    text = QueryEngine(db).explain_device(rq, analyze=True)
+assert "actual=" in text and "advisor: source=" in text, text
+assert plan_cache_info(db)["templates"] >= 2 and template.fingerprint_query
+assert compile_cache.manifest_snapshot() and prewarm.replay_manifest
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -228,24 +249,26 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
 
 
 def test_unported_rsp_and_mqo_paths_raise():
-    """Shared-prefix MQO is a later slice: asking for it raises
-    NotImplementedError.  Cross-window SDS+ reasoning and the incremental
+    """Shared-prefix MQO, cross-window SDS+ reasoning and the incremental
     R2R no longer raise: they answer as the JAX package does (in this
-    process the JAX package is loaded too, which the port ignores)."""
+    process the JAX package is loaded too, which the port ignores).  MQO
+    stays ``off`` unless asked for."""
     import pytest
 
     import kolibrie_tpu_torch as port
     from kolibrie_tpu_torch.optimizer import mqo
 
     db = port.SparqlDatabase(device="cpu")
+    db.parse_ntriples("<http://e/a> <http://e/p> <http://e/b> .\n")
+    mqo.register_standing(db, "http://e/w")
     for mode in ("auto", "force"):
         with mqo.override_mqo_mode(mode):
-            with pytest.raises(NotImplementedError, match="item 10"):
-                mqo.mqo_mode()
-            with pytest.raises(NotImplementedError, match="item 10"):
-                with mqo.standing_scope(db, "http://e/w"):
-                    pass
+            assert mqo.mqo_mode() == mode
+            with mqo.standing_scope(db, "http://e/w"):
+                rows = port.execute_query_volcano("SELECT ?x WHERE { ?x <http://e/p> ?y }", db)
+            assert rows == [["http://e/a"]]
     assert mqo.mqo_mode() == "off"
+    assert mqo.stats(db)["standing"] == 1
     # cross-window SDS+ and the incremental R2R are ported: both packages'
     # engines derive the same rows on the same stream
     from kolibrie_tpu.rsp.builder import RSPBuilder as RefBuilder

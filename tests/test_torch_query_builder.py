@@ -83,10 +83,19 @@ def test_replay_covers_the_reference_files():
 
 
 def test_explain_device_raises_until_a7():
+    """A7 has landed: ``explain_device`` no longer raises; it renders the
+    JAX package's plan text (tests/test_torch_explain.py holds it against
+    the reference over a corpus)."""
+    ttl = "@prefix ex: <http://example.org/> . ex:a ex:knows ex:b ."
+    q = "SELECT ?a WHERE { ?a <http://example.org/knows> ?b }"
     e = port.QueryEngine(device="cpu")
-    e.load_turtle_to_memory("@prefix ex: <http://example.org/> . ex:a ex:knows ex:b .")
-    with pytest.raises(NotImplementedError, match="A7"):
-        e.explain_device("SELECT ?a WHERE { ?a <http://example.org/knows> ?b }")
+    e.load_turtle_to_memory(ttl)
+    ref = RefEngine()
+    ref.load_turtle_to_memory(ttl)
+    ref.db.execution_mode = "device"
+    text = e.explain_device(q)
+    assert text == ref.explain_device(q)
+    assert text.startswith("scan[pos]") and "project -> ?a" in text
 
 
 # ------------------------------------------------------------ builder parity
