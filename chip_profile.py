@@ -68,6 +68,10 @@ timed (wall, synchronised), then under ``torch.profiler`` (device busy ms,
 busy share over the timed wall, device ops, top operators; Python's
 garbage collections during the timed run).
 ``python3 chip_profile.py repeated`` runs phase 13's part alone.
+``python3 chip_profile.py resilience`` runs phase 4 and then
+``chip_smoke.py``'s phase 14 (14a-14d, its checks included) in a fresh
+process: phase 14's walls and WAL overheads without phases 5-13's heap
+ahead of them.
 Prints one JSON object per query, one for the closure, one for the RSP
 stream, one per statement, one per phase-9 run, one per crossover
 point, one per phase-10 point, cycle list and sweep ratio, one for phase
@@ -83,6 +87,8 @@ import json
 import os
 import sys
 import time
+
+from chip_smoke import device_profile
 
 
 def profile_query(name: str, db, sparql: str, wcoj: str, entry=None) -> dict:
@@ -148,31 +154,6 @@ def profile_query(name: str, db, sparql: str, wcoj: str, entry=None) -> dict:
         "host_phases_ms": dict(spent),
         **prof,
         "busy_share": prof["device_busy_ms"] / wall_ms,
-    }
-
-
-def device_profile(fn) -> dict:
-    """Device busy time, device op count and the operators whose kernels
-    took the most of it, for one call of ``fn`` under ``torch.profiler``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    # device time by the operator that launched it (aten::sort, aten::index, ...)
-    ops = [e for e in events if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
-    return {
-        "device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
-        "device_ops": sum(e.count for e in dev),
-        "top_device": [
-            {"op": e.key, "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
-            for e in top
-        ],
     }
 
 
@@ -965,6 +946,20 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     out = []
     queries = build_queries(dev)
+    if argv == ["resilience"]:
+        from chip_smoke import breaker_counters, check_main_path, run_main_path, run_resilience_phase
+
+        t = time.perf_counter()
+        counters = breaker_counters()
+        main_path = run_main_path(dev, queries)
+        check_main_path(main_path["report"])
+        setup_s = time.perf_counter() - t
+        t = time.perf_counter()
+        res = run_resilience_phase(dev, main_path, counters)
+        print(card)
+        print(json.dumps({"card": card, "setup_s": setup_s, "phase14_s": time.perf_counter() - t,
+                          "launches": res["launches"], "resilience": res["report"]}, default=str))
+        return 0
     if argv == ["repeated"]:
         lubm = next(db for name, db, _q, _w in queries if name == "q2")
         emp = next(db for name, db, _q, _w in queries if name == "employee")

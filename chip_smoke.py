@@ -207,8 +207,34 @@ result line):
             manifest: both templates warmed, every kernel library a cache
             hit, none built.  Walls (cold, warm) and launches per subphase;
             counters zeroed just before 13a and read just after 13e.
+14. resilience and durability — first, every breaker board on a live
+            database, and the process-wide trip and degraded counters, read
+            zero after phases 4-13.  14a: phase 4's employee join, Q2 and Q9
+            behind an injected ``device.lower`` compile error, then a
+            ``device.execute`` OOM: three faulted calls served by the host
+            engine on the card (merge path launched, no lex probe) trip the
+            template's breaker, a fourth skips the device program, and past
+            the backoff (an injected clock) the half-open probe runs the
+            device program (lex probes / merge path); phase 4's rows at
+            every call; degraded and device walls, Q9's busy shares.  14b:
+            Q9 shed by an expired deadline at ``executor.enter`` and by one
+            expiring between lowering and dispatch (at ``device.execute``,
+            counted by the breaker): no launch, device memory back where it
+            began.  14c: ``bench.py``'s WAL ingest (30 batches of 2,048
+            rows, best of 5) and the LUBM-1000 bulk load with the WAL off
+            and on under ``group``: the overhead beside the 15% target.
+            14d: a second process under ``KOLIBRIE_FSYNC=always`` loads
+            LUBM-1000 through the WAL, snapshots, applies phase 8's INSERT
+            DATA / DELETE DATA, the ``memberOf`` RULE and a batch, prints
+            its acknowledgement and is killed with SIGKILL; recovery from
+            the snapshot + WAL tail and from the WAL alone gives the
+            uncrashed twin's columns and dictionary and phase 4's Q2 / Q9
+            rows; a torn append recovers to the acknowledged prefix.
+            Recover, first-query and snapshot walls, snapshot bytes, peak
+            device memory; each subphase's Python collections
+            (``GcMeter``); counters zeroed just before 14a, read after 14d.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7-13), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-14), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -3875,6 +3901,593 @@ def run_repeated_phase(dev, main_path: dict, lubm, emp, universities: int = UNIV
     return {"report": report, "launches": launches, "captured": captured, "walls": walls}
 
 
+# ------------------------------------------- phase 14: resilience and durability
+
+RESILIENCE_QUERIES = ("employee", "q2", "q9")  # phase 4's, on phase 4's databases
+WAL_BATCHES, WAL_ROWS, WAL_REPEATS = 30, 2_048, 5  # bench.py's durability block
+WAL_OVERHEAD_TARGET_PCT = 15.0  # bench.py's and the reference's docs/DURABILITY.md target
+CRASH_STORE = "lubm"
+CRASH_BATCH = 20_000  # 14d's second batch: note triples after the RULE
+CRASH_TORN = 'INSERT DATA { <http://phase14.example/torn> <http://phase14.example/p> "{}" }'
+
+
+class FakeClock:
+    """An injected monotonic clock: breakers and deadlines move only when
+    the script advances it, so no step sleeps."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def breaker_counters() -> tuple:
+    """The process-wide breaker trips and degraded requests so far (they
+    outlive the databases)."""
+    from kolibrie_tpu_torch.obs import metrics
+
+    trips = metrics.REGISTRY.get("kolibrie_breaker_trips_total").children()[0][1].value
+    return trips, metrics.REGISTRY.get("kolibrie_query_seconds").labels("degraded").count
+
+
+def breakers_idle(before: tuple) -> dict:
+    """Phases 4-13 injected nothing: every breaker board on a live port
+    database reads zero failures and zero degraded requests, and the
+    process-wide counters saw no trip and no degraded request since
+    ``before`` (:func:`breaker_counters` ahead of phase 4)."""
+    import gc
+
+    from kolibrie_tpu_torch.query.sparql_database import SparqlDatabase
+
+    gc.collect()  # only databases something still holds
+    boards, templates = 0, 0
+    for obj in gc.get_objects():
+        if type(obj) is SparqlDatabase and "_breaker_board" in obj.__dict__:
+            boards += 1
+            for fp, snap in obj.__dict__["_breaker_board"].snapshot().items():
+                templates += 1
+                if snap["total_failures"] or snap["degraded_served"] or snap["trips"]:
+                    raise AssertionError(f"breaker {fp[:12]} after phases 4-13: {snap}")
+    now = breaker_counters()
+    trips, degraded = now[0] - before[0], now[1] - before[1]
+    if trips or degraded:
+        raise AssertionError(f"phases 4-13: {trips} breaker trips, {degraded} degraded requests")
+    return {"boards": boards, "templates": templates, "trips": trips, "degraded": degraded}
+
+
+def device_profile(fn) -> dict:
+    """Device busy time, device op count and the operators whose kernels
+    took the most of it, for one call of ``fn`` under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device time by the operator that launched it (aten::sort, aten::index, ...)
+    ops = [e for e in events if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "device_busy_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+        "device_ops": sum(e.count for e in dev),
+        "top_device": [
+            {"op": e.key, "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
+            for e in top
+        ],
+    }
+
+
+def busy_share(dev, fn) -> dict:
+    """One synchronised call of ``fn`` timed, then one under
+    :func:`device_profile`: the wall, the device time of its kernels and
+    their share of that wall, as ``chip_profile.py`` measures busy shares
+    (not measured on the CPU)."""
+    import torch
+
+    if dev.type != "cuda":
+        fn()
+        return {"wall_ms": None, "device_ms": None, "busy_share": None}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    busy = device_profile(fn)["device_busy_ms"]
+    return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall if wall else None}
+
+
+def run_degraded(dev, main_path: dict) -> dict:
+    """14a: phase 4's employee join, Q2 and Q9 on phase 4's databases behind
+    an injected ``device.lower`` compile error, then an injected
+    ``device.execute`` OOM.  Each round: three faulted calls served by the
+    host engine (on the card) trip the template's breaker, a fourth skips
+    the device program, and past the backoff (the injected clock moved, no
+    sleep) the half-open probe runs the device program again.  Rows equal
+    phase 4's at every call."""
+    import torch
+
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.query.executor import plan_cache_info
+    from kolibrie_tpu_torch.resilience import breaker as B
+    from kolibrie_tpu_torch.resilience import faultinject as F
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dbs = {name: (db, q) for name, db, q, _w in main_path["queries"]}
+    rounds = (("device.lower", F.InjectedCompileError), ("device.execute", F.InjectedDeviceOOM))
+    out = {}
+    for name in RESILIENCE_QUERIES:
+        db, q = dbs[name]
+        want = main_path["rows"][name]
+        clk = FakeClock()
+        db.__dict__.pop("_breaker_board", None)
+        board = B.breaker_board(db, clock=clk)
+        # cold templates: the fault at device.lower fires only on a lowering
+        db.__dict__.pop("_template_cache", None)
+        steps, walls = [], {}
+
+        def call(label, _db=db, _q=q, _want=want, _name=name):
+            with KernelCalls() as calls:
+                sync()
+                t = time.perf_counter()
+                rows = execute_query_volcano(_q, _db)
+                sync()
+                ms = (time.perf_counter() - t) * 1e3
+            if rows != _want:
+                raise AssertionError(f"14a {_name} {label}: rows differ from phase 4's")
+            (snap,) = board.snapshot().values()
+            steps.append({"step": label, "ms": ms, "launches": dict(calls.counts),
+                          "state": snap["state"], "failures": snap["total_failures"],
+                          "degraded": snap["degraded_served"], "epoch": snap["close_epoch"]})
+            return steps[-1]
+
+        for site, error in rounds:
+            plan = F.FaultPlan(seed=14).add(site, error=error)
+            with plan.installed():
+                for i in range(B.DEFAULT_FAILURE_THRESHOLD + 1):
+                    st = call(f"{site}#{i + 1}")
+                    if st["launches"].get("lex_probe_select") or st["launches"].get(
+                            "lex_probe_validate"):
+                        raise AssertionError(f"14a {name}: a degraded call probed on the "
+                                             f"device: {st}")
+                    if not st["launches"].get("merge_path_join"):
+                        raise AssertionError(f"14a {name}: the host engine launched no merge "
+                                             f"path: {st}")
+                calls_at_trip = plan.snapshot()[site]["calls"]
+                if steps[-1]["state"] != "open" or calls_at_trip != B.DEFAULT_FAILURE_THRESHOLD:
+                    raise AssertionError(f"14a {name} {site}: breaker {steps[-1]}, "
+                                         f"fault site calls {calls_at_trip}")
+                if steps[-1]["degraded"] < 1:
+                    raise AssertionError(f"14a {name}: the open breaker served nothing degraded")
+            walls[f"degraded_{site}"] = steps[-1]["ms"]  # warm host slot, device skipped
+            clk.advance(B.DEFAULT_BACKOFF_MAX_S)
+            st = call(f"{site}:probe")
+            if (st["state"], st["epoch"]) != ("closed", 1 + rounds.index((site, error))):
+                raise AssertionError(f"14a {name}: half-open probe {st}")
+            probe = "merge_path_join" if name == "employee" else "lex_probe_select"
+            if not st["launches"].get(probe):
+                raise AssertionError(f"14a {name}: the probe launched no {probe}: {st}")
+        walls["device_warm"] = call("device:warm")["ms"]
+        info = plan_cache_info(db)
+        busy = {"degraded": None, "device": None}
+        if name == "q9":
+            mode, db.execution_mode = db.execution_mode, "host"  # the degraded route, warm
+            try:
+                busy["degraded"] = busy_share(dev, lambda: execute_query_volcano(q, db))
+            finally:
+                db.execution_mode = mode
+            busy["device"] = busy_share(dev, lambda: execute_query_volcano(q, db))
+        out[name] = {"steps": steps, "walls": walls, "sentinel_expiries":
+                     info["sentinel_expiries"], "breaker": board.snapshot(), "busy": busy}
+        log(f"14a {name}: degraded {walls['degraded_device.lower']:.1f} / "
+            f"{walls['degraded_device.execute']:.1f} ms, device warm {walls['device_warm']:.1f} "
+            f"ms, sentinel_expiries {info['sentinel_expiries']}, busy {busy}")
+        log(f"14a {name} steps: {steps}")
+    return out
+
+
+def run_deadlines(dev, main_path: dict) -> dict:
+    """14b: Q9 shed by an expired deadline at ``executor.enter`` (no kernel
+    launched, no device memory kept), then by a deadline that expires
+    between lowering and dispatch (the injected clock moves 1 s inside the
+    lowering): ``device.execute`` sheds it, the breaker counts the failure,
+    no kernel launched."""
+    import gc
+
+    import torch
+
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.resilience import breaker as B
+    from kolibrie_tpu_torch.resilience import faultinject as F
+    from kolibrie_tpu_torch.resilience.deadline import Deadline, deadline_scope
+    from kolibrie_tpu_torch.resilience.errors import DeadlineExceeded
+
+    on_card = dev.type == "cuda"
+    mem = torch.cuda.memory_allocated if on_card else (lambda: 0)
+    db, q = next((db, q) for name, db, q, _w in main_path["queries"] if name == "q9")
+    clk = FakeClock()
+    db.__dict__.pop("_breaker_board", None)
+    board = B.breaker_board(db, clock=clk)
+    out = {}
+    for label, budget, plan in (
+            ("executor.enter", -1.0, None),
+            ("device.execute", 0.5,
+             F.FaultPlan(seed=14, sleep=clk.advance).add("device.lower", latency_s=1.0))):
+        db.__dict__.pop("_template_cache", None)
+        gc.collect()
+        m0 = mem()
+        with KernelCalls() as calls:
+            try:
+                with deadline_scope(Deadline(budget, clock=clk)):
+                    if plan is None:
+                        execute_query_volcano(q, db)
+                    else:
+                        with plan.installed():
+                            execute_query_volcano(q, db)
+            except DeadlineExceeded as e:
+                site = e.site
+            else:
+                raise AssertionError(f"14b {label}: Q9 was not shed")
+        m1 = mem()
+        db.__dict__.pop("_template_cache", None)  # the slot holding the shed lowering
+        gc.collect()
+        m2 = mem()
+        snap = board.snapshot()
+        failures = sum(s["total_failures"] for s in snap.values())
+        out[label] = {"site": site, "launches": dict(calls.counts), "mem_before": m0,
+                      "mem_after": m1, "mem_after_slot": m2, "breaker_failures": failures}
+        if site != label or calls.counts or m2 != m0:
+            raise AssertionError(f"14b {label}: {out[label]}")
+        if failures != (0 if plan is None else 1):
+            raise AssertionError(f"14b {label}: breaker {snap}")
+    log(f"14b: {out}")
+    return out
+
+
+def wal_ingest(db, tag: str) -> float:
+    """bench.py's durability ingest: ``WAL_BATCHES`` ``parse_ntriples``
+    calls of ``WAL_ROWS`` lines; seconds."""
+    t0 = time.perf_counter()
+    for b in range(WAL_BATCHES):
+        db.parse_ntriples("\n".join(
+            f"<https://d.example/{tag}/{b}_{j}> <https://d.example/p{j % 4}> "
+            f"<https://d.example/v{b}_{j}> ." for j in range(WAL_ROWS)))
+    return time.perf_counter() - t0
+
+
+def run_wal_ingest(dev, universities: int, repeats: int = WAL_REPEATS) -> dict:
+    """14c: bench.py's durability ingest (best of ``WAL_REPEATS``) with the
+    WAL off and on under ``group``, then the LUBM bulk load
+    (``generate_fast`` into ``add_batch``) off and on; the WAL's bytes and
+    records, and the overhead beside the reference's 15% target."""
+    import shutil
+    import tempfile
+
+    from benches.lubm import generate_fast
+    from kolibrie_tpu_torch import SparqlDatabase
+    from kolibrie_tpu_torch.durability import DurabilityManager
+
+    best = {"off": float("inf"), "on": float("inf")}
+    wal = {}
+    for r in range(repeats):
+        best["off"] = min(best["off"], wal_ingest(SparqlDatabase(device=dev), f"off{r}"))
+        tmp = tempfile.mkdtemp(prefix="kolibrie-wal-")
+        try:
+            m = DurabilityManager(tmp, fsync_policy="group", device=dev)
+            m.start()
+            db = SparqlDatabase(device=dev)
+            m.attach("bench", db)
+            best["on"] = min(best["on"], wal_ingest(db, f"on{r}"))
+            m.flush()
+            wal = {"bytes": m.wal.appended_bytes, "records": m.wal.appended_records}
+            m.close()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    bulk = {}
+    for side in ("off", "on"):
+        tmp = tempfile.mkdtemp(prefix="kolibrie-wal-")
+        try:
+            db = SparqlDatabase(device=dev)
+            m = None
+            if side == "on":
+                m = DurabilityManager(tmp, fsync_policy="group", device=dev)
+                m.start()
+                m.attach("lubm", db)
+            t = time.perf_counter()
+            db.store.add_batch(*generate_fast(universities, db.dictionary))
+            if m is not None:
+                m.flush()
+            bulk[side] = time.perf_counter() - t
+            if m is not None:
+                bulk["wal"] = {"bytes": m.wal.appended_bytes, "records": m.wal.appended_records}
+                m.close()
+            bulk["triples"] = len(db)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    out = {
+        "fsync_policy": "group",
+        "ingest_s_wal_off": best["off"], "ingest_s_wal_on": best["on"],
+        "ingest_overhead_pct": (best["on"] - best["off"]) / best["off"] * 100.0,
+        "ingest_wal": wal,
+        "bulk_s_wal_off": bulk["off"], "bulk_s_wal_on": bulk["on"],
+        "bulk_overhead_pct": (bulk["on"] - bulk["off"]) / bulk["off"] * 100.0,
+        "bulk_wal": bulk["wal"], "bulk_triples": bulk["triples"],
+        "target_pct": WAL_OVERHEAD_TARGET_PCT,
+    }
+    if wal.get("records") != WAL_BATCHES + 1 or bulk["wal"]["records"] != 2:
+        raise AssertionError(f"14c: WAL records {wal}, {bulk['wal']}")
+    log(f"14c: {out}")
+    return out
+
+
+def crash_statements(db) -> int:
+    """14d's writes after the snapshot, in order: phase 8's INSERT DATA and
+    DELETE DATA (half of them), the ``memberOf`` RULE, a second batch of
+    note triples.  Returns the count of statements applied."""
+    import numpy as np
+
+    from kolibrie_tpu_torch import execute_query_volcano
+
+    pre = SURFACE_PREFIXES
+    execute_query_volcano(pre + data_statement(DATA_TRIPLES, "INSERT DATA"), db)
+    execute_query_volcano(pre + data_statement(DATA_TRIPLES // 2, "DELETE DATA"), db)
+    execute_query_volcano(pre + RULE_STATEMENT, db)
+    enc = db.dictionary.encode
+    note = enc(NOTE)
+    subj = np.fromiter((enc(f"http://phase14.example/s{i}") for i in range(CRASH_BATCH)),
+                       dtype=np.uint32, count=CRASH_BATCH)
+    obj = np.fromiter((enc(f'"batch {i % 97}"') for i in range(CRASH_BATCH)),
+                      dtype=np.uint32, count=CRASH_BATCH)
+    db.store.add_batch(subj, np.full(CRASH_BATCH, note, dtype=np.uint32), obj)
+    return 4
+
+
+def crash_child(data_dir: str, aside_dir: str, universities: int, device: str) -> None:
+    """14d's writer: under ``KOLIBRIE_FSYNC=always`` it attaches a manager,
+    bulk-loads LUBM, copies the WAL aside (the WAL-alone copy's first
+    segments), snapshots, applies :func:`crash_statements`, prints the
+    acknowledged count and blocks until it is killed."""
+    import shutil
+    import threading
+
+    import torch
+
+    from benches.lubm import generate_fast
+    from kolibrie_tpu_torch import SparqlDatabase
+    from kolibrie_tpu_torch.durability import DurabilityManager
+
+    os.environ["KOLIBRIE_FSYNC"] = "always"
+    dev = torch.device(device)
+    m = DurabilityManager(data_dir, device=dev)
+    m.start()
+    db = SparqlDatabase(device=dev)
+    m.attach(CRASH_STORE, db)
+    db.store.add_batch(*generate_fast(universities, db.dictionary))
+    m.flush()
+    shutil.copytree(m.wal_dir, os.path.join(aside_dir, "wal"))
+    t = time.perf_counter()
+    gen = m.snapshot({CRASH_STORE: db})
+    snap_ms = (time.perf_counter() - t) * 1e3
+    gen_dir = m.generation_dir(gen)
+    snap_bytes = sum(os.path.getsize(os.path.join(gen_dir, f)) for f in os.listdir(gen_dir))
+    acked = crash_statements(db)
+    print(json.dumps({"acked": acked, "generation": gen, "snapshot_ms": snap_ms,
+                      "snapshot_bytes": snap_bytes, "wal": m.stats()["wal"],
+                      "triples": len(db)}), flush=True)
+    threading.Event().wait()
+
+
+def recover_and_check(dev, label: str, data_dir: str, twin, want: dict, on_card: bool) -> dict:
+    """Recover ``data_dir`` on ``dev``; the store's columns and dictionary
+    must equal ``twin``'s, Q2 phase 4's rows and Q9 the twin's (= phase
+    4's); recovery replayed records and truncated none."""
+    import numpy as np
+    import torch
+
+    from benches.lubm import LUBM_Q2, LUBM_Q9
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.durability import DurabilityManager
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    m = DurabilityManager(data_dir, device=dev)
+    t = time.perf_counter()
+    res = m.recover()
+    rec_ms = (time.perf_counter() - t) * 1e3
+    db = res.stores[CRASH_STORE]
+    stats = m.stats()["last_recovery"]
+    m.close()
+    if stats["replayed_records"] < 1 or stats["truncated_records"] != 0:
+        raise AssertionError(f"14d {label}: recovery {stats}")
+    sync()
+    t = time.perf_counter()
+    q2 = execute_query_volcano(LUBM_Q2, db)  # compaction, mirror upload, lowering
+    sync()
+    first_ms = (time.perf_counter() - t) * 1e3
+    q9 = execute_query_volcano(LUBM_Q9, db)
+    cols, tcols = db.store.columns(), twin.store.columns()
+    if not all(np.array_equal(a, b) for a, b in zip(cols, tcols)):
+        raise AssertionError(f"14d {label}: the recovered columns differ from the twin's")
+    if db.dictionary.id_to_str != twin.dictionary.id_to_str:
+        raise AssertionError(f"14d {label}: the recovered dictionary differs from the twin's")
+    if q2 != want["q2"] or q9 != want["q9"] or q9 != want["twin_q9"]:
+        raise AssertionError(f"14d {label}: Q2/Q9 rows differ")
+    out = {"recover_ms": rec_ms, "first_query_ms": first_ms, "triples": len(db),
+           "replayed_records": stats["replayed_records"],
+           "replayed_bytes": stats["replayed_bytes"],
+           "snapshot_generation": stats["snapshot_generation"]}
+    log(f"14d {label}: {out}")
+    return out, db
+
+
+def run_crash_recovery(dev, main_path: dict, universities: int, captured: dict) -> dict:
+    """14d: a second process writes through the WAL and is killed with
+    SIGKILL after its acknowledgement; recovery from snapshot + WAL tail and
+    from the WAL alone each give the uncrashed twin's store and phase 4's
+    Q2 / Q9 rows.  Then a torn append (``InjectedTornWrite`` at
+    ``wal.append``) is truncated to the acknowledged prefix."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import torch
+
+    from benches.lubm import LUBM_Q9, generate_fast
+    from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
+    from kolibrie_tpu_torch.durability import DurabilityManager, wal as W
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.query import compile_cache
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+    from kolibrie_tpu_torch.resilience.errors import DurabilityError
+    from kolibrie_tpu_torch.resilience.faultinject import FaultPlan, InjectedTornWrite
+
+    on_card = dev.type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, aside = os.path.join(tmp, "data"), os.path.join(tmp, "aside")
+        os.makedirs(aside)
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "chip_smoke.crash_child(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5])")
+        t = time.perf_counter()
+        with open(os.path.join(tmp, "child.err"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", code, repo, data, aside, str(universities), dev.type],
+                stdout=subprocess.PIPE, stderr=err, text=True)
+            ack = None
+            guard = threading.Timer(900.0, proc.kill)  # a writer that hangs is killed too
+            guard.start()
+            try:
+                for line in proc.stdout:  # the acknowledgement, or EOF if it died
+                    if line.startswith('{"acked"'):
+                        ack = json.loads(line)
+                        break
+            finally:
+                guard.cancel()
+                proc.send_signal(signal.SIGKILL)
+                proc.wait()
+                proc.stdout.close()
+        out["child_wall_ms"] = (time.perf_counter() - t) * 1e3
+        if ack is None:
+            raise AssertionError("14d: the writer died before its acknowledgement:\n"
+                                 + open(os.path.join(tmp, "child.err")).read()[-4000:])
+        out["child"] = ack
+        out["child_returncode"] = proc.returncode
+        # the uncrashed twin: the same writes, no manager, no crash
+        t = time.perf_counter()
+        twin = SparqlDatabase(device=dev)
+        twin.store.add_batch(*generate_fast(universities, twin.dictionary))
+        saved_filter = FX.filter_mask
+        FX.filter_mask = filter_recorder(captured, saved_filter)
+        undo = recorder_install(captured)
+        try:
+            crash_statements(twin)
+            want = {"q2": main_path["rows"]["q2"], "q9": main_path["rows"]["q9"],
+                    "twin_q9": execute_query_volcano(LUBM_Q9, twin)}
+        finally:
+            FX.filter_mask = saved_filter
+            undo()
+        out["twin_ms"] = (time.perf_counter() - t) * 1e3
+        if ack["triples"] != len(twin):
+            raise AssertionError(f"14d: the writer acknowledged {ack['triples']} triples, the "
+                                 f"twin holds {len(twin)}")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        # the WAL alone: the segments copied aside before the snapshot plus
+        # every later segment (the snapshot pruned them from the data dir)
+        for idx in W.list_segments(os.path.join(data, "wal")):
+            shutil.copy(W.segment_path(os.path.join(data, "wal"), idx),
+                        W.segment_path(os.path.join(aside, "wal"), idx))
+        out["snapshot_tail"], db = recover_and_check(dev, "snapshot+tail", data, twin, want,
+                                                     on_card)
+        del db
+        out["wal_alone"], db = recover_and_check(dev, "WAL alone", aside, twin, want, on_card)
+        del db
+        if out["snapshot_tail"]["snapshot_generation"] != 1 or \
+                out["wal_alone"]["snapshot_generation"] != 0:
+            raise AssertionError("14d: recovered from the wrong generations")
+        # a torn append: the first statement is acknowledged, the second tears
+        m = DurabilityManager(data, device=dev)
+        db = m.recover().stores[CRASH_STORE]
+        m.attach(CRASH_STORE, db, log_create=False)
+        plan = FaultPlan(seed=14).add("wal.append", error=InjectedTornWrite, at_calls=[2])
+        with plan.installed():
+            execute_query_volcano(CRASH_TORN.replace("{}", "acked"), db)
+            try:
+                execute_query_volcano(CRASH_TORN.replace("{}", "torn"), db)
+            except DurabilityError:
+                pass
+            else:
+                raise AssertionError("14d: the torn append was acknowledged")
+        m.close()
+        m = DurabilityManager(data, device=dev)
+        t = time.perf_counter()
+        res = m.recover()
+        torn_ms = (time.perf_counter() - t) * 1e3
+        back = res.stores[CRASH_STORE]
+        stats = m.stats()["last_recovery"]
+        m.close()
+        got = execute_query_volcano(
+            'SELECT ?o WHERE { <http://phase14.example/torn> <http://phase14.example/p> ?o }',
+            back)
+        if got != [["acked"]] or stats["truncated_records"] < 1 or len(back) != len(twin) + 1:
+            raise AssertionError(f"14d torn tail: rows {got}, recovery {stats}")
+        out["torn"] = {"recover_ms": torn_ms, "truncated_records": stats["truncated_records"],
+                       "truncated_bytes": stats["truncated_bytes"],
+                       "corrupt_reason": stats["corrupt_reason"]}
+        if on_card:
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del db, back, twin
+    # recovery pointed the kernel build at the data dir's compile cache
+    compile_cache._active_dir = None
+    K.set_build_dir(K._BUILD)
+    log(f"14d: {out}")
+    return out
+
+
+def run_resilience_phase(dev, main_path: dict, counters_before: tuple,
+                         universities: int = UNIVERSITIES, wal_repeats: int = WAL_REPEATS) -> dict:
+    """Phase 14 (14a-14d), its launches counted from just before 14a to just
+    after 14d, each subphase metered by ``GcMeter``; ``counters_before``
+    is :func:`breaker_counters` ahead of phase 4."""
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    idle = breakers_idle(counters_before)
+    log(f"phase 14: breakers after phases 4-13: {idle}")
+    captured = {}
+    report, gc = {"idle": idle}, {}
+    K.reset_launches()
+    undo = recorder_install(captured)
+    try:
+        with GcMeter() as g:
+            report["14a"] = run_degraded(dev, main_path)
+        gc["14a"] = g.summary()
+        with GcMeter() as g:
+            report["14b"] = run_deadlines(dev, main_path)
+        gc["14b"] = g.summary()
+    finally:
+        undo()
+    with GcMeter() as g:
+        report["14c"] = run_wal_ingest(dev, universities, wal_repeats)
+    gc["14c"] = g.summary()
+    with GcMeter() as g:
+        report["14d"] = run_crash_recovery(dev, main_path, universities, captured)
+    gc["14d"] = g.summary()
+    launches = {**K.LAUNCHES}
+    report["gc"] = gc
+    log(f"phase 14 collections: {gc}")
+    log(f"phase 14 launches: {launches}; {time.perf_counter() - t0:.1f} s")
+    return {"report": report, "launches": launches, "captured": captured}
+
+
 def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
     """One kernel row: its check against the plain version on ``args``,
     device times of the kernel, the plain version and the library call,
@@ -3971,7 +4584,7 @@ def load_parent_kernels(root: str):
 
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
-    prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, parent=None,
+    prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, resilience: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -3982,7 +4595,9 @@ def kernels_at_main_path_shapes(
     cross-window and incremental closures' merge path and filter, phase
     11's queries after the load for the lex probes, phase 12's card
     statements for the ML path's merge path and filter, phase 13's
-    repeated-query runs (13a-13e) for the merge path and the lex probes.  The merge path's and the
+    repeated-query runs (13a-13e) for the merge path and the lex probes,
+    phase 14 (14a-14d) for the merge path, the lex probes and the RULE's
+    fused filter.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -4110,6 +4725,21 @@ def kernels_at_main_path_shapes(
              K.lex_probe_validate_plain, validate_bytes, check_validate)):
         line.append(timed_row(f"{name}[repeated]", csrc + src, pk + body, l13.get(name, 0),
                               rc[name][1], fn, plain, nbytes, check))
+    # phase 14: its launches (14a-14d), at its largest calls
+    zc, l14 = resilience["captured"], resilience["launches"]
+    for name, src, body, fn, plain, nbytes, check in (
+            ("merge_path_join", "merge_join.cu", "181", K.merge_path, K.merge_path_plain,
+             merge_path_bytes, check_merge_path),
+            ("lex_probe_select", "lex_probe.cu", "743", K.lex_probe_select,
+             K.lex_probe_select_plain, select_bytes, check_select),
+            ("lex_probe_validate", "lex_probe.cu", "783", K.lex_probe_validate,
+             K.lex_probe_validate_plain, validate_bytes, check_validate)):
+        line.append(timed_row(f"{name}[resilience]", csrc + src, pk + body, l14.get(name, 0),
+                              zc[name][1], fn, plain, nbytes, check))
+    fargs = zc["filter_mask"][1]
+    line.append(timed_row("filter_mask[resilience]", csrc + "filter_mask.cu", pk + "887",
+                          l14.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                          check_filter, filter_library(fargs)))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -4170,6 +4800,7 @@ def main(argv=None) -> int:
     log("kernels: bit-exact against the plain versions at random shapes")
 
     # ---- 4. main path
+    counters = breaker_counters()  # phase 14 reads them again
     queries = build_queries(dev)
     main_path = run_main_path(dev, queries)
     check_main_path(main_path["report"])
@@ -4212,10 +4843,13 @@ def main(argv=None) -> int:
     # ---- 13. the repeated-query layer
     repeated = run_repeated_phase(dev, main_path, lubm, emp)
 
+    # ---- 14. resilience and durability
+    resilience = run_resilience_phase(dev, main_path, counters)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
         main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, repeated,
-        parent,
+        resilience, parent,
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -293,6 +293,15 @@ class ColumnarTripleStore:
         self._o = _EMPTY
         self._pending_add: list = []  # list of (s,p,o) tuples or (N,3) arrays
         self._pending_del: set = set()
+        #: Optional mutation journal hook ``journal(event, payload)`` set by
+        #: the durability manager.  Fires at mutation BUFFER time, on the
+        #: host arrays before any device upload — the exact add_batch/remove
+        #: units the reference journals, so both packages write the same
+        #: WAL records.  Events: ``("add", (N,3) uint32 array)``,
+        #: ``("add1", (s,p,o))``, ``("del", (s,p,o))``, ``("clear", None)``.
+        #: Never set on clones or snapshot/restore twins (derived stores
+        #: are CONFIGURATION).
+        self.journal = None
         self._orders: dict = {}
         # Globally-unique version per compacted state: two stores (or one
         # store at two times) share a version IFF they hold identical column
@@ -324,6 +333,8 @@ class ColumnarTripleStore:
     def add(self, s: int, p: int, o: int) -> None:
         self._pending_add.append((int(s), int(p), int(o)))
         self._pending_del.discard((int(s), int(p), int(o)))
+        if self.journal is not None:
+            self.journal("add1", (int(s), int(p), int(o)))
 
     def add_triple(self, t: Triple) -> None:
         self.add(t.subject, t.predicate, t.object)
@@ -351,20 +362,29 @@ class ColumnarTripleStore:
                 if not rows.isdisjoint(self._pending_del):
                     self.compact()
         self._pending_add.append(arr)
+        if self.journal is not None:
+            self.journal("add", arr)
 
     def remove(self, s: int, p: int, o: int) -> None:
         key = (int(s), int(p), int(o))
         self._pending_del.add(key)
+        if self.journal is not None:
+            self.journal("del", key)
 
     def remove_batch(self, s: np.ndarray, p: np.ndarray, o: np.ndarray) -> None:
-        """:meth:`remove` of every row of the three columns."""
-        self._pending_del.update(
+        """:meth:`remove` of every row of the three columns (journaled row
+        by row, in order, as the reference's per-row deletes are)."""
+        keys = list(
             zip(
                 np.asarray(s, dtype=np.int64).tolist(),
                 np.asarray(p, dtype=np.int64).tolist(),
                 np.asarray(o, dtype=np.int64).tolist(),
             )
         )
+        self._pending_del.update(keys)
+        if self.journal is not None:
+            for key in keys:
+                self.journal("del", key)
 
     def clear(self) -> None:
         self._s = self._p = self._o = _EMPTY
@@ -372,6 +392,8 @@ class ColumnarTripleStore:
         self._pending_del = set()
         self._invalidate()
         self._merge_base()
+        if self.journal is not None:
+            self.journal("clear", None)
 
     # ------------------------------------------------------------ compaction
 

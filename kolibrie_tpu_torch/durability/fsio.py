@@ -6,8 +6,7 @@ DIRECTORY is fsynced so the rename itself survives a crash.  A reader can
 therefore only ever observe the old complete file or the new complete
 file — never a torn half-write.
 
-Port of ``kolibrie_tpu/durability/fsio.py`` (``fsync_dir`` and
-``atomic_write``, copied).
+Port of ``kolibrie_tpu/durability/fsio.py`` (copied).
 """
 
 from __future__ import annotations
@@ -61,3 +60,18 @@ def atomic_write(path: str, fsync: bool = True) -> Iterator:
             except OSError:
                 pass
         raise
+
+
+def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
+    with atomic_write(path, fsync=fsync) as fh:
+        fh.write(data)
+
+
+def atomic_rename_dir(tmp_dir: str, final_dir: str) -> None:
+    """Atomically publish a fully-written directory: fsync the tree's
+    files' directory entries, rename, fsync the parent.  Used for
+    snapshot generations — a crash leaves either no ``final_dir`` or a
+    complete one, never a partial."""
+    fsync_dir(tmp_dir)
+    os.rename(tmp_dir, final_dir)
+    fsync_dir(os.path.dirname(os.path.abspath(final_dir)))

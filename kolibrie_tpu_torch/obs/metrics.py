@@ -1,16 +1,16 @@
-"""The counters and histograms of ``kolibrie_tpu/obs/metrics.py``, for the
-PyTorch port: a process-wide registry of counters and fixed-bucket
-histograms.  No dependencies, no background threads, lock-cheap.  Gauges,
-snapshots and scrape-time collectors come with the serving slice, which
-reads them.
+"""The counters, gauges and histograms of ``kolibrie_tpu/obs/metrics.py``,
+for the PyTorch port: a process-wide registry of counters, gauges and
+fixed-bucket histograms.  No dependencies, no background threads,
+lock-cheap.  Snapshots and scrape-time collectors come with the serving
+slice, which reads them.
 
 Families cache their label children (``labels()`` is get-or-create on a
 dict keyed by the label-value tuple), so steady-state instrumented code
 never allocates, and ``observe`` is a linear scan over ~14 floats, far
 cheaper than the device work it measures.
 
-A module-level :data:`REGISTRY` is the default sink; :func:`counter` and
-:func:`histogram` are what instrumented code uses.
+A module-level :data:`REGISTRY` is the default sink; :func:`counter`,
+:func:`gauge` and :func:`histogram` are what instrumented code uses.
 """
 
 from __future__ import annotations
@@ -52,6 +52,29 @@ class CounterChild:
             self.value += amount
 
 
+class GaugeChild:
+    __slots__ = ("_lock", "value")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def set(self, value: float) -> None:
+        if not runtime.enabled():
+            return
+        with self._lock:
+            self.value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        if not runtime.enabled():
+            return
+        with self._lock:
+            self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+
 class HistogramChild:
     __slots__ = ("_lock", "buckets", "counts", "sum", "count")
 
@@ -85,7 +108,7 @@ class HistogramChild:
             return out
 
 
-_Child = Union[CounterChild, HistogramChild]
+_Child = Union[CounterChild, GaugeChild, HistogramChild]
 
 
 class Family:
@@ -107,7 +130,7 @@ class Family:
     def _make_child(self) -> _Child:
         if self.kind == "histogram":
             return HistogramChild(self.buckets)
-        return CounterChild()
+        return GaugeChild() if self.kind == "gauge" else CounterChild()
 
     def labels(self, *values) -> _Child:
         if len(values) != len(self.label_names):
@@ -132,6 +155,12 @@ class Family:
 
     def observe(self, value: float) -> None:
         self._default.observe(value)
+
+    def set(self, value: float) -> None:
+        self._default.set(value)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._default.dec(amount)
 
     def children(self) -> List[Tuple[Tuple[str, ...], _Child]]:
         with self._lock:
@@ -169,6 +198,9 @@ class Registry:
     def counter(self, name: str, help: str = "", labels: Sequence[str] = ()) -> Family:
         return self._get_or_create(name, help, "counter", labels)
 
+    def gauge(self, name: str, help: str = "", labels: Sequence[str] = ()) -> Family:
+        return self._get_or_create(name, help, "gauge", labels)
+
     def histogram(self, name: str, help: str = "", labels: Sequence[str] = (),
                   buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS) -> Family:
         return self._get_or_create(name, help, "histogram", labels, buckets)
@@ -187,6 +219,10 @@ REGISTRY = Registry()
 
 def counter(name: str, help: str = "", labels: Sequence[str] = ()) -> Family:
     return REGISTRY.counter(name, help, labels)
+
+
+def gauge(name: str, help: str = "", labels: Sequence[str] = ()) -> Family:
+    return REGISTRY.gauge(name, help, labels)
 
 
 def histogram(name: str, help: str = "", labels: Sequence[str] = (),

@@ -102,6 +102,16 @@ def new_trace_id() -> str:
     return f"{_rand.getrandbits(128):032x}"
 
 
+def current_trace_id() -> Optional[str]:
+    """The active trace id on this thread, or None."""
+    return _ctx()["trace_id"]
+
+
+def current_span_id() -> Optional[str]:
+    stack = _ctx()["stack"]
+    return stack[-1].span_id if stack else None
+
+
 @contextmanager
 def trace_scope(trace_id: Optional[str] = None):
     """Install ``trace_id`` (or a fresh one) as this thread's active

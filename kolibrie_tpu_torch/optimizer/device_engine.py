@@ -100,6 +100,7 @@ from kolibrie_tpu_torch.obs.spans import span as _obs_span
 from kolibrie_tpu_torch.optimizer import plan as P
 from kolibrie_tpu_torch.optimizer import stats_advisor as _sa
 from kolibrie_tpu_torch.optimizer.engine import strip_literal
+from kolibrie_tpu_torch.resilience.deadline import check_deadline
 from kolibrie_tpu_torch.resilience.faultinject import fault_point
 from kolibrie_tpu_torch.query.ast import (
     Comparison,
@@ -2382,6 +2383,10 @@ class LoweredPlan:
 
     def execute(self) -> BindingTable:
         """Run to completion with capacity validation; returns a host table."""
+        # deadline check BEFORE the run (don't start device work the client
+        # stopped waiting for) and a fault point that can inject kernel
+        # latency / a simulated device OOM; both read only the host
+        check_deadline("device.execute")
         fault_point("device.execute")
         if not self.const_ok():
             return self.empty_table()
@@ -2398,6 +2403,7 @@ class LoweredPlan:
             if table is not None:
                 self.last_source = "mqo"
                 _DISPATCH_LAT.labels(tpl).observe(_time.perf_counter() - t0)
+                check_deadline("device.execute.done")
                 return table
         # KOLIBRIE_PLAN_INTERP routes eligible templates through the
         # plan-bytecode interpreter; a shape it declines falls through to
@@ -2410,6 +2416,7 @@ class LoweredPlan:
             if table is not None:
                 self.last_source = "interp"
                 _DISPATCH_LAT.labels(tpl).observe(_time.perf_counter() - t0)
+                check_deadline("device.execute.done")
                 return table
         specs0 = len(_SPECS_RUN["run_plan"])
         t0 = _time.perf_counter()
@@ -2434,6 +2441,7 @@ class LoweredPlan:
                 caps=list(self._join_caps),
                 rows=nrows,
             )
+        check_deadline("device.execute.done")
         return table
 
 
@@ -2627,7 +2635,13 @@ def lower_plan(db, plan, anti_plans=(), union_groups=(), optional_plans=()) -> L
     plans: concatenation joined in) and OPTIONAL branch plans (left-outer
     joins) composed over it in the host post-pass order.  Raises
     :class:`Unsupported` for shapes the engine does not lower; only
-    lowering raises it, never :meth:`LoweredPlan.execute`."""
+    lowering raises it, never :meth:`LoweredPlan.execute`.
+
+    Resilience hooks: an injected compile fault raises DeviceFault (NOT
+    Unsupported — transient, counted by the circuit breaker, never
+    recorded as a sticky lowering sentinel); an expired deadline sheds the
+    request before lowering work starts."""
+    check_deadline("device.lower")
     fault_point("device.lower")
     tpl = _get_baggage("template", "unknown")
     t0 = _time.perf_counter()
@@ -2669,6 +2683,7 @@ def _execute_plan_batch(lowereds: List[LoweredPlan], max_attempts: int = 12) -> 
     ABI)."""
     if not lowereds:
         return []
+    check_deadline("device.batch")
     fault_point("device.batch")
     base = lowereds[0]
     for lp in lowereds[1:]:
@@ -3040,9 +3055,11 @@ def try_device_execute_ordered(db, q, cache_entry=None) -> Optional[List[List[st
     instead of re-planning and re-lowering."""
     from kolibrie_tpu_torch.optimizer.engine import resolve_pattern
     from kolibrie_tpu_torch.optimizer.planner import Streamertail, build_logical_plan
-    from kolibrie_tpu_torch.query.executor import _clause_plans, format_results
+    from kolibrie_tpu_torch.query.executor import _clause_plans, _device_routed, format_results
     from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
 
+    if not _device_routed(db):
+        return None
     if q.limit is None or not q.order_by or q.distinct or q.group_by:
         return None
     if any(i.kind != "var" for i in q.select) and not q.select_all():

@@ -161,10 +161,17 @@ class ExecutionEngine:
         if isinstance(op, (P.PhysStarJoin, P.WcojNode)):
             # a WCOJ node runs as binary joins: the same bindings (set
             # semantics); the worst-case-optimal evaluation is the device
-            # lowering's
+            # lowering's.  The scans join in their order, but a scan that
+            # shares no variable with the table so far waits for one that
+            # does: the reference joins strictly in order, which for a
+            # cyclic pattern listed type-first (LUBM Q2) is a cartesian
+            # product of about 10^12 rows at LUBM-1000
+            tables = [self._execute(scan) for scan in op.scans]
             out: Optional[DeviceTable] = None
-            for scan in op.scans:
-                t = self._execute(scan)
+            while tables:
+                nxt = 0 if out is None else next(
+                    (i for i, t in enumerate(tables) if set(t) & set(out)), 0)
+                t = tables.pop(nxt)
                 out = t if out is None else equi_join_device(out, t)
             return out if out is not None else {}
         if isinstance(op, P.PhysFilter):

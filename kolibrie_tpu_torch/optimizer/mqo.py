@@ -34,9 +34,11 @@ op-table shape, same size class.  The numpy twin of ``host_execute``'s
 scan/join cases evaluates it where the reference does when the prefix
 is over the interpreter's budget (``InterpUnsupported``); such host
 evaluations are counted per prefix (``host_evals`` in :func:`stats`), so
-a decline shows as routing.  The reference's ``try_shared_host`` serves
-host-routed stores, which the port does not have: every store's queries
-run on its device.  Suffix filters always apply
+a decline shows as routing.  :func:`try_shared_host` serves host-routed
+stores (``execution_mode`` "auto" under the device floor, or "host"); the
+reference evaluates their prefix with its numpy twin, the port on the
+store's device as above, since the port's host engine runs there too.
+Suffix filters always apply
 host-side with ``host_execute``'s exact filter semantics (NaN guards,
 =/!= id-equality fallback), so shared results are row-identical to
 independent evaluation.
@@ -74,6 +76,7 @@ __all__ = [
     "transient_scope",
     "prefix_fp_for",
     "try_shared_execute",
+    "try_shared_host",
     "describe_shared",
     "stats",
     "reset",
@@ -83,7 +86,7 @@ _MODES = ("auto", "off", "force")
 _tl = threading.local()
 
 _CACHE_MAX = 64  # prefix tables per store (LRU)
-_MEMO_MAX = 256  # fingerprint memo entries per store (LRU)
+_MEMO_MAX = 256  # fingerprint / lowering memo entries per store (LRU)
 
 _SHARED_EVALS = _metrics.counter(
     "kolibrie_mqo_shared_evals_total",
@@ -162,6 +165,7 @@ class _Registry:
         "hits",
         "cache",
         "fp_memo",
+        "lowered_memo",
         "host_evals",
     )
 
@@ -176,6 +180,7 @@ class _Registry:
         self.host_evals: Dict[str, int] = {}  # prefix evals on the host twin per fp
         self.cache: "OrderedDict" = OrderedDict()
         self.fp_memo: "OrderedDict" = OrderedDict()
+        self.lowered_memo: "OrderedDict" = OrderedDict()
 
     def active(self) -> bool:
         return bool(self.standing or self.transient)
@@ -692,6 +697,45 @@ def try_shared_execute(lowered) -> Optional[dict]:
             rows=_nrows(table),
         )
     return table
+
+
+def try_shared_host(db, plan) -> Optional[dict]:
+    """eval_where host-branch hook: lower ``plan`` (memoized per store
+    version, the plan object pinned so its id can't recycle) and serve it
+    from a shared prefix, evaluated on the store's device."""
+    mode = mqo_mode()
+    if mode == "off":
+        return None
+    reg = _registry(db)
+    owner = _tl_owner(reg)
+    if mode == "auto" and owner is None and not reg.active():
+        return None
+    from kolibrie_tpu_torch.optimizer.device_engine import Unsupported, lower_plan
+
+    # the memo keys on the PLAN OBJECT's identity, pinned alive in the
+    # value so the id can't recycle.  Never on the owner token: an owner
+    # is a sharing scope, not a query — the same owner may evaluate
+    # different templates, and serving owner A's previous lowering to a
+    # different query returns wrong rows
+    key = ("plan", id(plan)) + db.store.version_key()
+    with reg.lock:
+        hit = reg.lowered_memo.get(key)
+        if hit is not None:
+            reg.lowered_memo.move_to_end(key)
+    if hit is not None:
+        lowered = hit[1]
+    else:
+        try:
+            lowered = lower_plan(db, plan)
+        except Unsupported:
+            return None
+        with reg.lock:
+            # the value keeps ``plan`` alive: a live entry's id is in use
+            reg.lowered_memo[key] = (plan, lowered)
+            reg.lowered_memo.move_to_end(key)
+            while len(reg.lowered_memo) > _MEMO_MAX:
+                reg.lowered_memo.popitem(last=False)
+    return try_shared_execute(lowered)
 
 
 # ---------------------------------------------------------------------------

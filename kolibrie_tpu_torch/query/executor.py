@@ -37,6 +37,15 @@ post-passes:
 
 WINDOW blocks raise :class:`Unsupported` with the construct's name.
 
+Routing and faults (the reference's): ``db.execution_mode`` "auto" runs
+the device program from :data:`_DEVICE_AUTO_MIN` triples and the host
+engine below, "device" / "host" force either; the host engine runs on the
+database's device.  Device-routed statements run behind the template's
+circuit breaker: a device fault serves the call degraded on the host
+engine (:func:`_execute_degraded`), an open breaker serves the template
+degraded until a half-open probe succeeds, and ``check_deadline`` sheds a
+request whose deadline passed.
+
 Repeated queries (the reference's plan cache and batching):
 
 - :func:`execute_query_volcano` keys every statement on the parsed AST
@@ -98,6 +107,9 @@ from kolibrie_tpu_torch.query.ast import (
 )
 from kolibrie_tpu_torch.query.parser import parse_combined_query
 from kolibrie_tpu_torch.query.subquery_inline import inline_subqueries
+from kolibrie_tpu_torch.resilience.breaker import breaker_board
+from kolibrie_tpu_torch.resilience.deadline import check_deadline
+from kolibrie_tpu_torch.resilience.errors import DeadlineExceeded, is_device_fault
 
 __all__ = [
     "Unsupported",
@@ -116,6 +128,11 @@ _PARSE_LAT = obs_metrics.histogram(
     "kolibrie_query_parse_seconds", "SPARQL parse + template fingerprint time"
 )
 _PLAN_LAT = obs_metrics.histogram("kolibrie_query_plan_seconds", "Streamertail plan search time")
+_QUERY_LAT = obs_metrics.histogram(
+    "kolibrie_query_seconds",
+    "end-to-end executor time by path (device/host/degraded)",
+    labels=("path",),
+)
 _PLAN_CACHE_EVENTS = obs_metrics.counter(
     "kolibrie_plan_cache_events_total",
     "plan-cache lookups by outcome",
@@ -125,10 +142,19 @@ _BATCHED_QUERIES = obs_metrics.counter(
     "kolibrie_batched_queries_total",
     "queries answered through a batched same-template dispatch",
 )
+# fixed-label children hoisted out of the per-query hot path
+_QUERY_LAT_DEVICE = _QUERY_LAT.labels("device")
+_QUERY_LAT_HOST = _QUERY_LAT.labels("host")
+_QUERY_LAT_DEGRADED = _QUERY_LAT.labels("degraded")
 _PLAN_CACHE_HIT = _PLAN_CACHE_EVENTS.labels("hit")
 _PLAN_CACHE_MISS = _PLAN_CACHE_EVENTS.labels("miss")
 _PLAN_CACHE_REBIND = _PLAN_CACHE_EVENTS.labels("param_rebind")
 _PLAN_CACHE_EVICTION = _PLAN_CACHE_EVENTS.labels("eviction")
+
+# "auto" execution mode switches to the device program at this store size;
+# db.execution_mode = "device" / "host" forces either path.  The host
+# engine runs on the database's device too.
+_DEVICE_AUTO_MIN = 100_000
 
 
 def _interp_mode() -> str:
@@ -137,6 +163,14 @@ def _interp_mode() -> str:
     from kolibrie_tpu_torch.optimizer.plan_interp import plan_interp_mode
 
     return plan_interp_mode()
+
+
+def _device_routed(db) -> bool:
+    """THE routing rule for "does this query run the device program":
+    explicit ``execution_mode == "device"``, or auto mode over a store big
+    enough that the device program beats the host engine."""
+    mode = getattr(db, "execution_mode", "auto")
+    return mode == "device" or (mode == "auto" and len(db.store) >= _DEVICE_AUTO_MIN)
 
 
 def _filter_vars(expr) -> List[str]:
@@ -253,7 +287,7 @@ def eval_where(
         if prebuilt_lowered is not None and prebuilt_lowered is not False:
             table = prebuilt_lowered.execute()
             fused_clauses = prebuilt_lowered.fused_clauses
-        elif prebuilt_lowered is None:
+        elif prebuilt_lowered is None and _device_routed(db):
             if not where.subqueries and _has_clauses(where):
                 # UNION / OPTIONAL / MINUS / NOT fuse into the device program
                 # in the order the host post-passes apply them.  All or
@@ -280,9 +314,30 @@ def eval_where(
                         fused_clauses = table is not None
             if table is None:
                 table = try_device_execute(db, plan, capture=capture)
+        if table is None and not _device_routed(db):
+            # host-routed stores reach the MQO layer here: the shared
+            # prefix evaluates once and only the filter suffix runs per
+            # query (optimizer/mqo.py)
+            from kolibrie_tpu_torch.optimizer import mqo as _mqo
+
+            table = _mqo.try_shared_host(db, plan)
         if table is None:
-            # the lowering declined this plan: the reference's host engine,
-            # run on the database's device
+            # a host-routed store, or a plan the lowering declined: the
+            # reference's host engine, run on the database's device
+            from kolibrie_tpu_torch.obs import analyze as _obs_analyze
+
+            cap_rec = _obs_analyze.active()
+            if cap_rec is not None:
+                # EXPLAIN ANALYZE honesty: say WHICH engine ran when the
+                # query never reached a device program
+                cap_rec.record(
+                    "host",
+                    reason=(
+                        "device lowering unavailable"
+                        if _device_routed(db)
+                        else "host-routed store"
+                    ),
+                )
             table = engine.execute_with_ids(plan)
     else:
         table = _naive_eval(engine, resolved, where, plan_filters)
@@ -440,6 +495,8 @@ def _try_device_aggregate(
     reuses the returned plan and lowering (``False`` = lowering failed).
     ``cache_entry``: plan-cache slot — a populated slot replays its plan
     and lowered program; a fresh one captures them."""
+    if not _device_routed(db):
+        return None, None, None
     w = inline_subqueries(q.where)  # the fold eval_where applies
     if w.subqueries or w.binds or w.window_blocks or not w.patterns:
         return None, None, None
@@ -950,7 +1007,8 @@ def _plan_cache_entry(db, sparql: str):
       tree: the lowered program carries its constants in the parameter
       vectors);
     - within a template, the physical plan + lowered program live in
-      per-state slots keyed by (store BASE version, UDF registry): since
+      per-state slots keyed by (store BASE version, UDF registry,
+      ``execution_mode``): since
       mutation batches under the delta threshold advance only
       ``delta_epoch``, plans survive insert/delete traffic, and each
       execution's scan ranges and device delta segment carry the fresh
@@ -1002,8 +1060,29 @@ def _plan_cache_entry(db, sparql: str):
         stats["evictions"] += 1
         _PLAN_CACHE_EVICTION.inc()
     version = db.store.base_version
-    state = (version, db.__dict__.get("_udf_version", 0))
+    # the execution mode joins the state key: a degraded call (mode "host"
+    # for that call) keeps its own warm host slot beside the device one
+    state = (version, db.__dict__.get("_udf_version", 0), db.execution_mode)
     slot = tent["by_state"].get(state)
+    if slot is not None and slot["lowered"] is False:
+        # sticky-failure expiry: a ``False`` sentinel from a TRANSIENT
+        # device fault should not outlive the fault.  The template's
+        # circuit breaker bumps ``close_epoch`` on every open→closed
+        # recovery; when the epoch has advanced past the one captured
+        # with the sentinel, the fault demonstrably healed — clear the
+        # sentinel so the next execution retries device lowering.
+        # Shape-level failures (Unsupported) stay sticky: their host
+        # fallback records success on an always-closed breaker, which
+        # never bumps the epoch.
+        epoch = breaker_board(db).close_epoch(fp)
+        if slot.get("breaker_epoch") is None:
+            slot["breaker_epoch"] = epoch
+        elif slot["breaker_epoch"] != epoch:
+            slot["plan"] = None
+            slot["lowered"] = None
+            slot["ordered_failed"] = False
+            slot["breaker_epoch"] = epoch
+            stats["sentinel_expiries"] = stats.get("sentinel_expiries", 0) + 1
     if slot is None:
         # stale-base-version slots pin lowered programs over OLD store
         # orders: drop them, keeping only the live base's variants
@@ -1208,26 +1287,33 @@ def execute_queries_batched(db, queries: List[str]) -> List[Rows]:
     one run per query.  Everything else — singleton templates, aggregates,
     ordered queries, updates — runs solo through
     :func:`execute_query_volcano`.  Results come back in input order;
-    per-query host post-processing is the solo path's."""
+    per-query host post-processing is the solo path's.  A group runs
+    behind its template's circuit breaker as the solo path does: a device
+    fault counts against it and hands the group to the solo path."""
+    check_deadline("executor.batch")
     results: List[Optional[Rows]] = [None] * len(queries)
     for text in queries:
         db.register_prefixes_from_query(text)
     groups: Dict[str, List[int]] = {}
     members: List[Optional[tuple]] = [None] * len(queries)
-    for i, text in enumerate(queries):
-        ent, slot = _plan_cache_entry(db, text)
-        if slot["lowered"] is False:
-            continue  # template known un-lowerable: solo (host) path
-        eligible = _batchable_select(db, ent["cq"])
-        if eligible is None:
-            continue
-        q, w = eligible
-        members[i] = (ent, slot, q, w)
-        groups.setdefault(ent["fp"], []).append(i)
+    board = breaker_board(db)
+    if _device_routed(db):
+        for i, text in enumerate(queries):
+            ent, slot = _plan_cache_entry(db, text)
+            if slot["lowered"] is False:
+                continue  # template known un-lowerable: solo (host) path
+            eligible = _batchable_select(db, ent["cq"])
+            if eligible is None:
+                continue
+            q, w = eligible
+            members[i] = (ent, slot, q, w)
+            groups.setdefault(ent["fp"], []).append(i)
     _, _, stats = _plan_caches(db)
     for fp, idxs in groups.items():
         if len(idxs) < 2:
             continue  # solo dispatch is already optimal for singletons
+        if not board.allow(fp):
+            continue  # breaker open: members fall to the solo degraded path
         if _interp_mode() == "force":
             # forced interpreter routing: members run solo through the
             # interpreter instead of the specialized batch
@@ -1243,6 +1329,17 @@ def execute_queries_batched(db, queries: List[str]) -> List[Rows]:
             tables = execute_plan_batch([low for _, _, _, low in lowereds])
         except Unsupported:
             continue  # shape or plan divergence inside the group: solo path
+        except DeadlineExceeded:
+            board.record_failure(fp)
+            raise
+        except Exception as e:
+            if not is_device_fault(e):
+                raise
+            # a device fault: count it, hand the whole group to the solo
+            # path (which degrades per the breaker)
+            board.record_failure(fp)
+            continue
+        board.record_success(fp)
         stats["batched"] += len(idxs)
         stats["batch_groups"] += 1
         _BATCHED_QUERIES.inc(len(idxs))
@@ -1292,10 +1389,43 @@ def _solo_prefix_fp(db, text: str) -> Optional[str]:
     return _mqo.prefix_fp_for(db, ent["fp"], _lower)
 
 
+def _execute_degraded(db, sparql: str) -> Rows:
+    """Degraded mode: run on the host engine by forcing host execution
+    for this call — on the database's device, as every host-routed query
+    runs in the port.  The plan-cache state key includes
+    ``execution_mode``, so the host plan gets (and keeps) its own warm
+    slot — repeat degraded queries don't re-plan.
+
+    The mode flip is a plain attribute swap: callers that share a
+    database across threads must serialize database access."""
+    check_deadline("executor.degraded")
+    prev = db.execution_mode
+    db.execution_mode = "host"
+    t0 = time.perf_counter()
+    try:
+        with span("query.degraded"):
+            ent, slot = _plan_cache_entry(db, sparql)
+            rows = execute_combined(db, ent["cq"], cache_entry=slot)
+        _QUERY_LAT_DEGRADED.observe(time.perf_counter() - t0)
+        return rows
+    finally:
+        db.execution_mode = prev
+
+
 def execute_query_volcano(sparql: str, db) -> Rows:
     """Run one SPARQL statement on ``db``'s device and return the SELECT's
     rows as display strings (the reference's ``execute_query_volcano``),
-    through the plan cache (:func:`_plan_cache_entry`)."""
+    through the plan cache (:func:`_plan_cache_entry`).
+
+    Device-routed queries run behind the template's circuit breaker
+    (:mod:`kolibrie_tpu_torch.resilience.breaker`): device faults
+    (injected compile failures, CUDA out-of-memory) and deadline blowups
+    count against the breaker; a device fault degrades THIS call to the
+    host engine and, once the breaker trips, the whole template is served
+    degraded until a half-open probe succeeds.  ``Unsupported`` is not a
+    fault — the sticky lowering sentinel already handles it — and neither
+    is a kernel that fails to build or launch: it raises."""
+    check_deadline("executor.enter")
     db.register_prefixes_from_query(sparql)
     ent, slot = _plan_cache_entry(db, sparql)
     fp = ent["fp"]
@@ -1304,8 +1434,33 @@ def execute_query_volcano(sparql: str, db) -> Rows:
     # eval_where; the stats advisor has its own channel
     set_baggage("template", fp)
     _sa_set_current_fp(fp)
-    with span("query.execute", template=fp, path="device"):
-        return execute_combined(db, ent["cq"], cache_entry=slot)
+    if not _device_routed(db):
+        t0 = time.perf_counter()
+        with span("query.execute", template=fp, path="host"):
+            rows = execute_combined(db, ent["cq"], cache_entry=slot)
+        _QUERY_LAT_HOST.observe(time.perf_counter() - t0)
+        return rows
+    board = breaker_board(db)
+    if not board.allow(fp):
+        return _execute_degraded(db, sparql)
+    t0 = time.perf_counter()
+    try:
+        with span("query.execute", template=fp, path="device"):
+            rows = execute_combined(db, ent["cq"], cache_entry=slot)
+    except DeadlineExceeded:
+        # still shed (the client's budget is gone either way), but a
+        # template that repeatedly blows deadlines on the device trips its
+        # breaker and future calls go straight to the host engine
+        board.record_failure(fp)
+        raise
+    except Exception as e:
+        if not is_device_fault(e):
+            raise
+        board.record_failure(fp)
+        return _execute_degraded(db, sparql)
+    board.record_success(fp)
+    _QUERY_LAT_DEVICE.observe(time.perf_counter() - t0)
+    return rows
 
 
 def execute_query(sparql: str, db) -> Rows:

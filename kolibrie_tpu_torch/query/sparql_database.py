@@ -53,6 +53,10 @@ class SparqlDatabase:
         self.quoted = QuotedTripleStore()
         self.prefixes: Dict[str, str] = dict(DEFAULT_PREFIXES)
         self.udfs: Dict[str, Callable] = {}
+        #: "auto" (the device program from ``query.executor._DEVICE_AUTO_MIN``
+        #: triples, the host engine below), "device" or "host"; the host
+        #: engine runs on this database's device too
+        self.execution_mode: str = "auto"
         #: RULE definitions by name (``execute_combined``)
         self.rule_map: Dict[str, object] = {}
         #: MODEL declarations by name
@@ -346,7 +350,7 @@ class SparqlDatabase:
     def union(self, other: "SparqlDatabase") -> "SparqlDatabase":
         """New database holding both stores' triples: other's ids re-encoded
         through a merged dictionary, probability seeds merged, prefixes/
-        UDFs/registries from self.  Parity: the reference's
+        UDFs/registries/execution mode from self.  Parity: the reference's
         whole-DB ``union`` (``sparql_database.rs:1990-2041``) — vectorized
         remap instead of a per-triple decode/encode loop."""
         out = self.clone()
@@ -590,6 +594,7 @@ class SparqlDatabase:
         db.quoted = self.quoted.clone()
         db.prefixes = dict(self.prefixes)
         db.udfs = dict(self.udfs)
+        db.execution_mode = self.execution_mode
         db.rule_map = dict(self.rule_map)
         db.model_registry = dict(self.model_registry)
         db.neural_relations = dict(self.neural_relations)

@@ -1,13 +1,15 @@
-"""Copy of ``kolibrie_tpu/resilience/faultinject.py`` for the PyTorch port,
-without the injections of the log, fsync and replication paths the port
-does not have, and without the environment-declared plans.
+"""Copy of ``kolibrie_tpu/resilience/faultinject.py`` for the PyTorch port.
 
 Deterministic fault injection: seeded hooks at named sites.
 
-Code calls :func:`fault_point(site)` where real streams fail; in the
-port that is window processing (``rsp.window``, in the supervisor).
-With no plan installed a fault point is a single list check — effectively
-free.
+The serving/query/streaming layers call :func:`fault_point(site)` at the
+places where real hardware and real streams fail: device compile
+(``device.lower``), device dispatch (``device.execute``,
+``device.batch``), window processing
+(``rsp.window``), and the WAL's disk path (``wal.append`` for torn
+writes and bit flips, ``wal.fsync`` for partial fsyncs — see
+:mod:`kolibrie_tpu_torch.durability.wal`).  With no plan installed a fault
+point is a single dict lookup — effectively free.
 
 A :class:`FaultPlan` arms sites with rules.  Every rule is
 DETERMINISTIC: rate-based rules draw from a per-site ``random.Random``
@@ -57,8 +59,49 @@ class InjectedCompileError(DeviceFault, InjectedFault):
     """Simulated device compile failure."""
 
 
+class InjectedDeviceOOM(DeviceFault, InjectedFault):
+    """Simulated device out-of-memory (RESOURCE_EXHAUSTED)."""
+
+
 class InjectedWindowCrash(WindowCrash, InjectedFault):
     """Simulated window-processor thread crash."""
+
+
+class InjectedTornWrite(InjectedFault):
+    """Simulated crash mid-``write()``: the WAL appender writes a PREFIX
+    of the frame and fails the append (site ``wal.append``).  Recovery
+    must truncate the torn tail."""
+
+
+class InjectedBitFlip(InjectedFault):
+    """Simulated silent corruption: the WAL appender flips one payload
+    bit and completes the append without error (site ``wal.append``).
+    Only the recovery scanner's CRC notices."""
+
+
+class InjectedFsyncFault(InjectedFault, OSError):
+    """Simulated partial/failed fsync (site ``wal.fsync``): data may have
+    reached the disk cache but durability cannot be acknowledged."""
+
+
+class InjectedShipTorn(InjectedFault):
+    """Simulated link failure mid-ship (site ``repl.send``): a PREFIX of
+    the protocol frame reaches the peer, then the connection dies.  The
+    receiver sees a short read / CRC failure and must reconnect and
+    re-request — never apply the partial frame."""
+
+
+class InjectedShipDrop(InjectedFault):
+    """Simulated dropped delivery (site ``repl.send``): the frame
+    silently never leaves the sender.  The receiver times out and
+    re-requests on a fresh connection."""
+
+
+class InjectedShipDuplicate(InjectedFault):
+    """Simulated duplicated delivery (site ``repl.send``): the frame is
+    sent TWICE back-to-back.  The receiver must treat the replay as a
+    no-op (sequence ids at the protocol layer, applied-segment watermark
+    at the replication layer)."""
 
 
 class _SiteRule:
@@ -199,3 +242,63 @@ def fault_point(site: str) -> None:
         return
     for plan in active_plans():
         plan.hit(site)
+
+
+# ------------------------------------------------------------- env plans
+
+#: error-class names an env-declared rule may inject — chaos tests arm
+#: child SERVER processes through the environment, where passing a
+#: class object is impossible
+_ENV_ERRORS = {
+    cls.__name__: cls
+    for cls in (
+        InjectedCompileError,
+        InjectedDeviceOOM,
+        InjectedWindowCrash,
+        InjectedTornWrite,
+        InjectedBitFlip,
+        InjectedFsyncFault,
+        InjectedShipTorn,
+        InjectedShipDrop,
+        InjectedShipDuplicate,
+    )
+}
+
+FAULT_PLAN_ENV = "KOLIBRIE_FAULT_PLAN"
+
+
+def plan_from_env(env: Optional[Dict[str, str]] = None) -> Optional[FaultPlan]:
+    """Build (but do not install) a plan from ``KOLIBRIE_FAULT_PLAN`` —
+    JSON like::
+
+        {"seed": 7, "rules": [
+            {"site": "repl.send", "error": "InjectedShipDuplicate",
+             "rate": 0.25, "max_fires": 4}]}
+
+    Returns None when the variable is unset/empty.  Malformed JSON or an
+    unknown error name raises ``ValueError`` loudly — a chaos run with a
+    silently-ignored fault plan would "pass" by testing nothing."""
+    import json as _json
+    import os as _os
+
+    raw = (env if env is not None else _os.environ).get(FAULT_PLAN_ENV, "")
+    if not raw.strip():
+        return None
+    try:
+        spec = _json.loads(raw)
+    except _json.JSONDecodeError as exc:
+        raise ValueError(f"unparseable {FAULT_PLAN_ENV}: {exc}") from exc
+    plan = FaultPlan(seed=int(spec.get("seed", 0)))
+    for rule in spec.get("rules", []):
+        name = rule.get("error")
+        if name is not None and name not in _ENV_ERRORS:
+            raise ValueError(f"{FAULT_PLAN_ENV} names unknown error {name!r}")
+        plan.add(
+            rule["site"],
+            error=_ENV_ERRORS[name] if name is not None else None,
+            latency_s=float(rule.get("latency_s", 0.0)),
+            rate=float(rule.get("rate", 1.0)),
+            at_calls=rule.get("at_calls"),
+            max_fires=rule.get("max_fires"),
+        )
+    return plan

@@ -14,8 +14,9 @@ and R2S applied at emission (:449-460).
 
 Port of ``kolibrie_tpu/rsp/engine.py``.  The engine runs on ``device``
 (the CUDA card unless the caller passes another): the R2R store and the
-static database live there, and every window query runs on the device
-engine.  ``r2r_mode`` None or ``"auto"`` means ``"device"``
+static database live there, and every window query runs there (the
+device program from 100,000 window triples, the host engine below, as
+``execution_mode`` "auto" routes it).  ``r2r_mode`` None or ``"auto"`` means ``"device"``
 (:class:`DeviceR2R`); ``"host"`` closes each firing with the host strategy
 (:class:`SimpleR2R`); ``"incremental"`` carries the closure across firings
 as expiration provenance (:class:`IncrementalR2R`, one window; several

@@ -32,16 +32,30 @@ PREFIX foaf: <http://xmlns.com/foaf/0.1/>
 
 
 def port_twin(ref: RefDatabase):
-    """The port's database holding the reference database's state."""
-    return port.SparqlDatabase.from_arrays(
+    """The port's database holding the reference database's state, routed
+    as the reference is (its ``execution_mode``)."""
+    db = port.SparqlDatabase.from_arrays(
         ref.dictionary.id_to_str, *ref.store.columns(), quoted=dict(ref.quoted.items()),
         device="cpu",
     )
+    db.execution_mode = ref.execution_mode
+    return db
 
 
 def pair(ref: RefDatabase):
     ref.execution_mode = "device"
     return ref, port_twin(ref)
+
+
+@pytest.fixture
+def port_device_program(monkeypatch):
+    """The port's "auto" route takes the device program for a store of any
+    size (its 100,000-triple floor at 0), for tests whose small stores are
+    built inside an engine (an RSP window, a replayed case); the reference
+    keeps its own routes, as it did before the port had the floor."""
+    from kolibrie_tpu_torch.query import executor
+
+    monkeypatch.setattr(executor, "_DEVICE_AUTO_MIN", 0)
 
 
 def rows(execute, db, q):

@@ -49,6 +49,7 @@ from kolibrie_tpu_torch.reasoner import provenance_seminaive as PS
 from kolibrie_tpu_torch.reasoner.n3_parser import parse_n3_rules_for_sds
 from kolibrie_tpu_torch.reasoner.provenance import ExpirationProvenance
 from kolibrie_tpu_torch.reasoner.tag_store import TagStore
+from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 PKGS = {
@@ -355,6 +356,7 @@ def _feed(pkg, engine, ticks, rooms=1):
 
 
 @pytest.mark.parametrize("mode", ["naive", "incremental", "auto"])
+@pytest.mark.usefixtures("port_device_program")
 def test_engine_cross_window(mode):
     """``test_rsp.py:409`` in every mode."""
     out = {}
@@ -369,6 +371,7 @@ def test_engine_cross_window(mode):
 
 
 @pytest.mark.parametrize("first,second", [("port", "port"), ("ref", "port"), ("port", "ref")])
+@pytest.mark.usefixtures("port_device_program")
 def test_cross_window_checkpoint_restore(first, second):
     """``test_rsp.py:559``: an incremental engine checkpointed after tick 2
     and restored into a fresh engine (either package's) derives the
@@ -392,6 +395,7 @@ def test_cross_window_checkpoint_restore(first, second):
     assert ref
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_auto_agrees_with_naive():
     """``test_rsp.py:593``: AUTO picks incremental on the steady phase and
     naive on the burst, as the reference does, with the naive engine's

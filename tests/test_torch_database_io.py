@@ -42,8 +42,21 @@ QUERIES = (
 )
 
 
+def _device_routed(db):
+    """Both packages' stores here are far under the 100,000-triple floor
+    below which "auto" takes the host engine: their queries run the
+    device program (the port's device mirror) instead."""
+    db.execution_mode = "device"
+    return db
+
+
 def _db(pkg):
-    return RefDb() if pkg == "ref" else PortDb(device="cpu")
+    return _device_routed(RefDb() if pkg == "ref" else PortDb(device="cpu"))
+
+
+def _load(pkg, path):
+    return _device_routed(PortDb.from_checkpoint(path, device="cpu") if pkg == "port"
+                          else RefDb.from_checkpoint(path))
 
 
 def _exec(pkg):
@@ -115,7 +128,7 @@ def test_checkpoint_across_packages(tmp_path, seed, writer, reader):
     twin, _ = _mutated(reader, seed)
     path = str(tmp_path / f"fuzz-{seed}.npz")
     src.checkpoint(path)
-    loaded = PortDb.from_checkpoint(path, device="cpu") if reader == "port" else RefDb.from_checkpoint(path)
+    loaded = _load(reader, path)
     assert _state(loaded) == _state(src) == _state(twin)
     assert run_all(reader, loaded) == run_all(writer, src)
     # the restored copy keeps interning and mutating exactly like the twin
@@ -145,7 +158,7 @@ def test_checkpoint_roundtrip_mirrors_reference(tmp_path):
         path = str(tmp_path / f"{pkg}.npz")
         db.checkpoint(path)
         other = "port" if pkg == "ref" else "ref"
-        db2 = PortDb.from_checkpoint(path, device="cpu") if other == "port" else RefDb.from_checkpoint(path)
+        db2 = _load(other, path)
         q = "PREFIX ex: <http://example.org/> SELECT ?x ?y WHERE { ?x ex:p ?y }"
         assert _exec(other)(q, db2) == _exec(pkg)(q, db)
         assert db2.parse_turtle("@prefix ex: <http://example.org/> . ex:new ex:p ex:a .") == 1
@@ -163,7 +176,7 @@ def test_empty_database_round_trips(tmp_path):
     for writer in ("ref", "port"):
         path = str(tmp_path / f"{writer}.npz")
         _db(writer).checkpoint(path)
-        db2 = PortDb.from_checkpoint(path, device="cpu")
+        db2 = _load("port", path)
         assert len(db2.store) == 0 and run_all("port", db2) == [[]] * len(QUERIES)
         db2.add_triple_parts("<http://f/a>", "<http://f/p0>", "<http://f/b>")
         assert len(db2.store) == 1

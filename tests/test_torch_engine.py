@@ -30,10 +30,13 @@ PREFIX foaf: <http://xmlns.com/foaf/0.1/>
 
 
 def port_twin(ref: RefDatabase):
-    """The port's database holding the reference database's state."""
-    return port.SparqlDatabase.from_arrays(
+    """The port's database holding the reference database's state, routed
+    as the reference is (its ``execution_mode``)."""
+    db = port.SparqlDatabase.from_arrays(
         ref.dictionary.id_to_str, *ref.store.columns(), device="cpu"
     )
+    db.execution_mode = ref.execution_mode
+    return db
 
 
 def ntriples_pair(lines):

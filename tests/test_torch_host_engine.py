@@ -33,10 +33,12 @@ H = "PREFIX h: <http://h.e/>\n"
 
 
 def port_twin(ref: RefDatabase):
-    return port.SparqlDatabase.from_arrays(
+    db = port.SparqlDatabase.from_arrays(
         ref.dictionary.id_to_str, *ref.store.columns(), quoted=dict(ref.quoted.items()),
         device="cpu",
     )
+    db.execution_mode = ref.execution_mode  # routed as the reference is
+    return db
 
 
 def random_graph(seed: int = 11) -> RefDatabase:
@@ -91,6 +93,9 @@ def mutate(ref: RefDatabase, tdb) -> None:
 @pytest.fixture(scope="module", params=["base", "delta"])
 def graph(request):
     ref = random_graph()
+    # the device program as on the card's full-width stores ("auto" routes
+    # a store this small to the host engine)
+    ref.execution_mode = "device"
     tdb = port_twin(ref)
     if request.param == "delta":
         mutate(ref, tdb)
@@ -199,6 +204,34 @@ def test_wcoj_node_runs_as_binary_joins(graph, monkeypatch):
     plan, got = plan_table("kolibrie_tpu_torch", tdb, q)
     assert type(plan).__name__ == "WcojNode"
     assert_same_table(want, got)
+
+
+def test_wcoj_node_joins_connected_scans_first(graph, monkeypatch):
+    """A cyclic pattern listed with two unconnected scans first: the
+    reference's host engine joins them as a cartesian product, the port's
+    takes a connected scan first (no join without a shared variable); the
+    same rows."""
+    from kolibrie_tpu_torch.optimizer import engine as E
+
+    ref, tdb = graph
+    monkeypatch.setenv("KOLIBRIE_WCOJ", "force")
+    q = H + "SELECT * WHERE { ?x h:p0 ?y . ?z h:p0 ?w . ?y h:p0 ?z . ?w h:p0 ?x }"
+    shared = []
+    join = E.equi_join_device
+
+    def spy(left, right):
+        shared.append(bool(set(left) & set(right)))
+        return join(left, right)
+
+    monkeypatch.setattr(E, "equi_join_device", spy)
+    _ref_plan, want = plan_table("kolibrie_tpu", ref, q)
+    plan, got = plan_table("kolibrie_tpu_torch", tdb, q)
+    assert type(plan).__name__ == "WcojNode" and len(plan.scans) == 4
+    assert shared == [True, True, True]
+    keys = sorted(want)
+    assert sorted(got) == keys
+    rows = lambda t: sorted(zip(*(t[k].tolist() for k in keys)))  # noqa: E731
+    assert rows(got) == rows(want) and len(rows(want)) > 0
 
 
 # ------------------------------------------------------- whole queries
@@ -339,6 +372,7 @@ UNIVERSITIES = 3
 def lubm3():
     ref = RefDatabase()
     ref.store.add_batch(*generate_fast(UNIVERSITIES, ref.dictionary))
+    ref.execution_mode = "device"  # LUBM-1000 is device-routed on the card
     return ref, port_twin(ref)
 
 

@@ -15,6 +15,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 
 GUARD = r"""
@@ -141,6 +145,40 @@ with stats_advisor.override_mode("auto"), analyze.capture() as cap:
 assert "actual=" in text and "advisor: source=" in text, text
 assert plan_cache_info(db)["templates"] >= 2 and template.fingerprint_query
 assert compile_cache.manifest_snapshot() and prewarm.replay_manifest
+import os, tempfile
+import kolibrie_tpu_torch.durability
+import kolibrie_tpu_torch.resilience
+from kolibrie_tpu_torch.durability import fsio, manager as dmanager, wal
+from kolibrie_tpu_torch.resilience import (
+    FaultPlan, InjectedCompileError, admission, breaker, deadline, errors, faultinject,
+    supervisor,
+)
+small = port.SparqlDatabase(device="cpu")
+small.parse_ntriples("<http://e/a> <http://e/p> <http://e/b> .\n")
+small.execution_mode = "device"
+plan = FaultPlan(seed=0).add("device.lower", error=InjectedCompileError)
+with plan.installed():
+    assert port.execute_query_volcano("SELECT ?x WHERE { ?x <http://e/p> ?y }", small) == [
+        ["http://e/a"]]
+(snap,) = breaker.breaker_board(small).snapshot().values()
+assert snap["failures"] == 1, snap
+data = tempfile.mkdtemp()
+m = dmanager.DurabilityManager(data, fsync_policy="always", device="cpu")
+m.start()
+w = port.SparqlDatabase(device="cpu")
+m.attach("s", w)
+w.parse_ntriples("<http://e/a> <http://e/p> <http://e/b> .\n")
+m.close()
+m = dmanager.DurabilityManager(data, device="cpu")
+back = m.recover().stores["s"]
+m.close()
+assert sorted(back.iter_decoded()) == sorted(w.iter_decoded())
+try:
+    dmanager.DurabilityManager(tempfile.mkdtemp())
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("a durability manager without a device and no CUDA card must raise")
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -215,7 +253,11 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     pkg = REPO / "kolibrie_tpu_torch"
     walked = {f.parent.name for f in pkg.rglob("*.py")}
     assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops", "native", "ml",
-            "parallel"} <= walked, walked
+            "parallel", "durability"} <= walked, walked
+    for name in ("admission", "breaker", "deadline", "errors", "faultinject", "supervisor"):
+        assert (pkg / "resilience" / f"{name}.py").exists(), name
+    for name in ("fsio", "wal", "manager"):
+        assert (pkg / "durability" / f"{name}.py").exists(), name
     files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "chip_profile.py",
@@ -248,13 +290,12 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
     assert out.returncode != 0 and out.stdout == ""
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_unported_rsp_and_mqo_paths_raise():
     """Shared-prefix MQO, cross-window SDS+ reasoning and the incremental
     R2R no longer raise: they answer as the JAX package does (in this
     process the JAX package is loaded too, which the port ignores).  MQO
     stays ``off`` unless asked for."""
-    import pytest
-
     import kolibrie_tpu_torch as port
     from kolibrie_tpu_torch.optimizer import mqo
 

@@ -30,6 +30,7 @@ from kolibrie_tpu.rsp.s2r import WindowTriple as RefWT
 from kolibrie_tpu_torch.reasoner import device_provenance as DP
 from kolibrie_tpu_torch.reasoner import provenance_seminaive as PS
 from kolibrie_tpu_torch.rsp.r2r import IncrementalR2R, SimpleR2R
+from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 RULES = """@prefix s: <http://c/> .
@@ -199,6 +200,7 @@ WHERE { WINDOW <http://c/w> { ?a s:reach ?c } }"""
 
 
 @pytest.mark.parametrize("mode", ["incremental", "device"])
+@pytest.mark.usefixtures("port_device_program")
 def test_engine_incremental_mode_matches_reference(mode):
     """``set_r2r_mode("incremental")`` on one window: the port's rows equal
     the JAX package's incremental engine push by push (and the port's

@@ -278,6 +278,7 @@ def run_case(name: str, pkg: str, tmp_path) -> dict:
         model = MlpNeuralPredicate.from_params(
             [(np.asarray(w), np.asarray(b)) for w, b in weights.params], case.kind, case.labels,
             device="cpu")
+    db.execution_mode = "device"  # both: the store is under the host-routed floor
     for q in case.before:
         execute(q, db)
     db.trained_models[case.model] = model

@@ -55,6 +55,7 @@ def graph(db, package: str) -> set:
 def convert(kind: str, pkg: str):
     conv = (port_mlschema.MLSchemaConverter(device="cpu") if pkg == "port"
             else ref_mlschema.MLSchemaConverter())
+    conv.db.execution_mode = "device"  # both: the graph is under the host-routed floor
     if kind == "linear":
         conv.convert_model(
             LinearStub(), X_train=np.zeros((30, 2)), X_test=np.zeros((10, 2)),
@@ -95,6 +96,7 @@ def test_mlschema_roundtrip():
     assert ttl == ref_mlschema.model_to_mlschema_ttl(
         "m1", metrics={"accuracy": 0.93, "cpuUsage": 12.5})
     tdb, rdb = port.SparqlDatabase(device="cpu"), RefDatabase()
+    tdb.execution_mode = rdb.execution_mode = "device"  # under the host-routed floor
     assert port_mlschema.load_mlschema_into_db(tdb, ttl) == ref_mlschema.load_mlschema_into_db(
         rdb, ttl)
     assert set(tdb.iter_decoded()) == set(rdb.iter_decoded())

@@ -213,6 +213,8 @@ def test_chip_smoke_phase13_rehearsal():
     lubm.store.add_batch(s, p, o)
     emp = port.SparqlDatabase(device="cpu")
     emp.parse_ntriples(CS.employee_ntriples(600))
+    # the device program, as LUBM-1000 and employee-100K take it on the card
+    lubm.execution_mode = emp.execution_mode = "device"
     rows = {"employee": port.execute_query_volcano(CS.EMPLOYEE_QUERY, emp),
             "q2": port.execute_query_volcano(LUBM_Q2, lubm),
             "q9": port.execute_query_volcano(LUBM_Q9, lubm)}

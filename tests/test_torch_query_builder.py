@@ -8,9 +8,7 @@ pointed at ``kolibrie_tpu_torch`` and its databases built with
 ``device="cpu"``, so each reference assertion holds the port to the same
 answer.  The one case left out, ``test_explain_device_plan_tree``, needs
 ``QueryEngine.explain_device``, which raises on the port until ROADMAP A7;
-``test_explain_device_raises_until_a7`` pins that; the union case drops its
-two ``execution_mode`` lines, a setting the port does not have (every query
-runs on the database's device).  Beside the replay, the
+``test_explain_device_raises_until_a7`` pins that.  Beside the replay, the
 builder's answers, the facade's explanations and the parse-error rendering
 are compared with the JAX package's one for one.
 """
@@ -30,6 +28,7 @@ from kolibrie_tpu.query.engine import QueryEngine as RefEngine
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDb
 from kolibrie_tpu_torch.query import error_handler as port_eh
 from kolibrie_tpu_torch.query import parser as port_parser
+from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
 
 TESTS = Path(__file__).resolve().parent
 SKIPPED = {"test_explain_device_plan_tree"}
@@ -42,10 +41,6 @@ def _replay_module(name: str) -> types.ModuleType:
     src = src.replace("kolibrie_tpu.", "kolibrie_tpu_torch.")
     src = src.replace("SparqlDatabase()", 'SparqlDatabase(device="cpu")')
     src = src.replace("QueryEngine()", 'QueryEngine(device="cpu")')
-    # the port has no ``execution_mode`` (every query runs on the
-    # database's device), so the union case does not set or read it
-    src = src.replace('    a.execution_mode = "host"\n', "")
-    src = src.replace('    assert u.execution_mode == "host"\n', "")
     mod = types.ModuleType(f"port_replay_{name[:-3]}")
     mod.__file__ = str(TESTS / name)
     exec(compile(src, f"<port replay of {name}>", "exec"), mod.__dict__)
@@ -69,6 +64,7 @@ _CASES = {f"{n}::{cid}": fn for n, mod in _MODULES.items() for cid, fn in _cases
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
+@pytest.mark.usefixtures("port_device_program")
 def test_reference_case_on_the_port(case, tmp_path):
     fn = _CASES[case]
     if "tmp_path" in inspect.signature(fn).parameters:
@@ -187,6 +183,7 @@ def test_query_engine_matches_reference(i):
     q = QUERIES_FOR_EXPLAIN[i]
     ref, prt = RefEngine(), port.QueryEngine(device="cpu")
     for e in (ref, prt):
+        e.db.execution_mode = "device"  # both: the graph is under the host-routed floor
         e.load_turtle_to_memory(DATA)
         e.add_triple(f"<{EX}erin>", f"<{EX}knows>", f"<{EX}alice>")
     assert vars(prt.explain(q)) == vars(ref.explain(q))

@@ -38,6 +38,7 @@ from kolibrie_tpu_torch.resilience.faultinject import FaultPlan, InjectedCompile
 from kolibrie_tpu_torch.rsp import s2r
 from kolibrie_tpu_torch.rsp.engine import OperationMode
 from kolibrie_tpu_torch.rsp.r2s import Relation2StreamOperator, StreamOperator
+from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 
@@ -235,6 +236,7 @@ WHERE {{ WINDOW <http://e/w> {{ ?a ex:reach ?c . ?c ex:knows ?a }} }}"""
 
 
 @pytest.mark.parametrize("kind", ["RSTREAM", "ISTREAM", "DSTREAM"])
+@pytest.mark.usefixtures("port_device_program")
 def test_single_window_rules_trace_matches_reference(kind):
     events = knows_stream(150, 6, seed=11)
     want, _ = trace("ref", reach_query(kind), events, rules=KNOWS_RULES, mode="host")
@@ -246,6 +248,7 @@ def test_single_window_rules_trace_matches_reference(kind):
     assert engine.r2r._device_ok
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_device_r2r_engine_trace_matches_jax_device_r2r():
     events = knows_stream(120, 7, seed=4)
     q = reach_query("ISTREAM", 6, 3)
@@ -281,6 +284,7 @@ def room_stream(n, seed):
 
 
 @pytest.mark.parametrize("policy", ["steal", "wait"])
+@pytest.mark.usefixtures("port_device_program")
 def test_two_windows_trace_matches_reference(policy):
     events = room_stream(60, seed=2)
     want, _ = trace("ref", MULTI_QUERY, events, policy=policy)
@@ -301,6 +305,7 @@ WHERE {
 STATIC_DATA = '@prefix ex: <http://e/> . ex:room0 ex:label "Kitchen" . ex:room1 ex:label "Hall" .'
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_static_query_trace_matches_reference():
     events = [(":s", (f"<http://e/room{i % 3}>", "<http://e/temp>", f'"{20 + i % 4}"'), i)
               for i in range(1, 14)]
@@ -317,6 +322,7 @@ def _drain(engine, timeout=20.0):
         t.join(timeout)
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_multi_thread_single_window_matches_reference():
     events = knows_stream(90, 5, seed=8)
     q = reach_query("RSTREAM")
@@ -329,6 +335,7 @@ def test_multi_thread_single_window_matches_reference():
     assert sorted(sink) == sorted(r for b in want for r in b) and sink
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_two_window_join_multi_thread():
     """``TestMultiThreadMode.test_two_window_join_multi_thread``."""
     rows: list = []
@@ -362,12 +369,14 @@ def _val(i, ts):
     return (":stream", (f"<http://e/s{i}>", "<http://e/val>", f'"{i}"'), ts)
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_istream_range3_step1():
     batches, _ = trace("port", QUERY_SINGLE, [_val(i, ts) for i, ts in enumerate([1, 2, 3, 4], 1)],
                        mode="device")
     assert [dict(r)["o"] for b in batches for r in b] == ["1", "2", "3"]
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_window_eviction():
     q = """PREFIX ex: <http://e/>
     REGISTER RSTREAM <http://out/s> AS SELECT ?s ?o
@@ -377,6 +386,7 @@ def test_window_eviction():
     assert [dict(r)["o"] for b in batches for r in b] == ["1", "2"]
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_two_window_join_single_thread():
     ev = [("http://e/tempStream", ("<http://e/room1>", "<http://e/temp>", '"21"'), ts)
           for ts in (1, 2, 3, 4)]
@@ -388,6 +398,7 @@ def test_two_window_join_single_thread():
     assert rows and rows[0] == {"room": "http://e/room1", "temp": "21", "hum": "60"}
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_static_join():
     q = """PREFIX ex: <http://e/>
     REGISTER RSTREAM <http://out/s> AS
@@ -403,6 +414,7 @@ def test_static_join():
     assert row["label"] == "Kitchen" and row["temp"] == "25"
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_engine_device_mode_exact_trace():
     """``TestDeviceR2R.test_engine_device_mode_exact_trace``."""
     rules = """@prefix ex: <http://e/> .
@@ -433,6 +445,7 @@ def _feed(pkg, engine, events):
         engine.add_to_stream(stream, _wt(pkg, s, p, o), ts)
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_checkpoint_json_matches_reference():
     events = knows_stream(80, 5, seed=3)
     q = reach_query("ISTREAM")
@@ -448,6 +461,7 @@ def test_checkpoint_json_matches_reference():
 
 
 @pytest.mark.parametrize("first,second", [("port", "port"), ("ref", "port"), ("port", "ref")])
+@pytest.mark.usefixtures("port_device_program")
 def test_restore_continues_the_stream(first, second):
     """Checkpoint mid-stream in one package, restore into a fresh engine of
     the other (or the same): the rows after the restore equal an
@@ -475,6 +489,7 @@ def test_restore_continues_the_stream(first, second):
     assert any(batches)
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_checkpoint_restore_mid_stream():
     """``TestPreemption.test_checkpoint_restore_mid_stream``."""
     events = [_val(i, ts) for i, ts in enumerate([1, 2, 3, 4, 5], 1)]
@@ -505,6 +520,7 @@ CW_RULES = """@prefix t: <http://e/wT/> .
 { ?room t:hot ?v . ?room h:humid ?w . } => { ?room t:alerted ?v . } ."""
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_restore_rejects_cross_window_state():
     """A checkpoint carrying cross-window state (the SDS+ expiry map and the
     latest raw window contents) is no longer rejected: the reference's blob
@@ -539,6 +555,7 @@ def test_restore_rejects_cross_window_state():
 # ------------------------------------------------------------ supervision
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_dead_letters_match_reference():
     """A firing that fails twice (first try and the retry) is dead-lettered
     and the stream goes on, in both packages alike."""
@@ -570,6 +587,7 @@ def test_device_failure_is_dead_lettered_not_rerun(monkeypatch):
     assert engine.r2r._device_ok
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_device_failure_after_a_good_firing_emits_nothing(monkeypatch):
     """A fixpoint that fails from the second device run on: every later
     firing is dead-lettered and emits no row, rather than answering over the
@@ -672,6 +690,7 @@ def test_phase7_gate_holds_the_card_to_the_cpu_prefix(fault):
             CS.check_rsp(card, host, 100, {}, cpu)
 
 
+@pytest.mark.usefixtures("port_device_program")
 def test_firings_record_span_and_metrics():
     """Each firing records the ``rsp.window.fire`` span and observes the
     window's fire-latency and event-lag histograms."""

@@ -6,8 +6,8 @@ raises, and the package's exports.
 Both packages hold the same database (the port's ``from_arrays`` takes the
 reference's dictionary, quoted table and columns, so every ID matches), run
 the same statement text, and must then hold the same store, compared as
-sets of decoded triples, and answer the same SELECT.  The reference runs
-with its default routes; the port on ``device="cpu"``.  No tolerance is
+sets of decoded triples, and answer the same SELECT.  Both run the device
+program (``execution_mode = "device"``); the port on ``device="cpu"``.  No tolerance is
 used.
 """
 
@@ -44,12 +44,17 @@ ex:ann ex:label "Ann A." . ex:cat ex:label "Cat C." .
 
 
 def pair():
+    """Both packages' databases on the device program: the store is far
+    under the 100,000-triple floor below which "auto" takes the host
+    engine."""
     ref = RefDatabase()
     ref.parse_turtle(TURTLE)
+    ref.execution_mode = "device"
     tdb = port.SparqlDatabase.from_arrays(
         ref.dictionary.id_to_str, *ref.store.columns(), quoted=dict(ref.quoted.items()),
         device="cpu",
     )
+    tdb.execution_mode = "device"
     tdb.prefixes.update(ref.prefixes)
     return ref, tdb
 
