@@ -71,7 +71,9 @@ garbage collections during the timed run).
 ``python3 chip_profile.py resilience`` runs phase 4 and then
 ``chip_smoke.py``'s phase 14 (14a-14d, its checks included) in a fresh
 process: phase 14's walls and WAL overheads without phases 5-13's heap
-ahead of them.
+ahead of them.  ``python3 chip_profile.py serving`` runs phase 4 and then
+phase 15 (15a-15e, the HTTP server, the router, a follower and a
+SIGKILLed child primary, its checks included) the same way.
 Prints one JSON object per query, one for the closure, one for the RSP
 stream, one per statement, one per phase-9 run, one per crossover
 point, one per phase-10 point, cycle list and sweep ratio, one for phase
@@ -959,6 +961,18 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"card": card, "setup_s": setup_s, "phase14_s": time.perf_counter() - t,
                           "launches": res["launches"], "resilience": res["report"]}, default=str))
+        return 0
+    if argv == ["serving"]:
+        from chip_smoke import check_main_path, run_main_path, run_serving_phase
+
+        t = time.perf_counter()
+        main_path = run_main_path(dev, queries)
+        check_main_path(main_path["report"])
+        setup_s = time.perf_counter() - t
+        res = run_serving_phase(dev, main_path)
+        print(card)
+        print(json.dumps({"card": card, "setup_s": setup_s, "launches": res["launches"],
+                          "serving": res["report"]}, default=str))
         return 0
     if argv == ["repeated"]:
         lubm = next(db for name, db, _q, _w in queries if name == "q2")

@@ -233,8 +233,38 @@ result line):
             Recover, first-query and snapshot walls, snapshot bytes, peak
             device memory; each subphase's Python collections
             (``GcMeter``); counters zeroed just before 14a, read after 14d.
+15. serving — phase 4's LUBM-1000 and employee-100K databases behind the
+            port's HTTP server on the card.  15a: both snapshotted as stores
+            ``lubm`` and ``emp`` in the layout the server's ``_snapshot_now``
+            writes; ``make_server(data_dir=..., recover_async=False,
+            repl_port=..., device="cuda")`` recovers them (recovery and
+            first-query walls).  15b: over ``/store/query`` Q2, Q9 and the
+            employee join, cold then warm, give phase 4's rows, each warm
+            request launching its route's kernels; 16 client threads send
+            64 employee template variants (``/stats``: fewer dispatches than
+            requests, a batched plan cache), each answer equal to a solo call
+            on the card; a ``/store/load`` write answers with a watermark
+            token; request latency p50 / p99.  15c: the trace id echoed and
+            one trace holding the HTTP → batcher → executor → device chain,
+            ``/metrics`` parsed as Prometheus text, ``/debug/timeline``,
+            ``/debug/profile?seconds=0.5`` under load (``torch.profiler``;
+            the trace names a ``csrc/`` kernel) and ``/debug/bundle``
+            (``flightrec.read_bundle``).  15d: an in-process follower
+            bootstraps LUBM-1000 from the primary's ship server onto the
+            card behind ``make_router``; a write through the router is
+            applied on the follower; Q9 read on the follower through the
+            router gives phase 4's rows; ``/fleet/metrics`` labels both
+            nodes.  15e: a child process serves as primary (``python -m
+            kolibrie_tpu_torch.frontends.cli --serve --device cuda``,
+            ``KOLIBRIE_DATA_DIR``, ``KOLIBRIE_REPL_PORT``) holding
+            employee-100K loaded over ``/store/load``, is SIGKILLed while a
+            writer ingests through the router; the router's supervisor
+            promotes the in-process follower, every acknowledged write whose
+            segment the follower had applied is there, and the promoted node
+            takes a write and answers the employee join with the merge path.
+            Counters zeroed just before 15a, read after 15e.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7-14), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-15), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -4488,6 +4518,551 @@ def run_resilience_phase(dev, main_path: dict, counters_before: tuple,
     return {"report": report, "launches": launches, "captured": captured}
 
 
+
+# ------------------------------------------------------- phase 15: serving
+
+SERVE_STORES = ("lubm", "emp")
+SERVE_CLIENTS = 16  # 15b: client threads
+SERVE_VARIANTS = 64  # 15b: employee template variants, one request each
+SERVE_PROFILE_S = 0.5  # 15c: /debug/profile window
+SERVE_KERNEL_NAMES = ("lex_probe_select_kernel", "lex_probe_validate_kernel",
+                      "merge_path_join_kernel", "filter_mask")
+SERVE_WRITES_CONFIRMED = 20  # 15e: acknowledged writes shipped before the kill
+SERVE_NS = "http://phase15.example/"
+
+
+def http_json(base: str, path: str, payload=None, headers=None, timeout: float = 300.0):
+    """``(status, json body, headers)`` of a POST (``payload`` given) or a
+    GET; HTTP errors are answers too."""
+    import urllib.error
+    import urllib.request
+
+    h = {"Content-Type": "application/json", **(headers or {})}
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, headers=h,
+                                 method="GET" if payload is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = resp.read()
+            status, hdrs = resp.status, dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        body, status, hdrs = e.read(), e.code, dict(e.headers)
+    ctype = hdrs.get("Content-Type", "")
+    return status, (json.loads(body) if ctype.startswith("application/json") else body), hdrs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_in_thread(httpd) -> str:
+    import threading
+
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def wait_until(what: str, fn, timeout_s: float = 120.0, every_s: float = 0.05):
+    """Poll ``fn`` until it returns a true value; that value."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            got = fn()
+        except OSError:
+            got = None
+        if got:
+            return got
+        time.sleep(every_s)
+    raise AssertionError(f"15: timed out waiting for {what}")
+
+
+def healthz(base: str) -> dict:
+    return http_json(base, "/healthz", timeout=10)[1]
+
+
+def wait_prewarmed(httpd) -> dict:
+    """Until a primary's background prewarm has replayed the manifest's
+    hot templates (phases 4-14's, process-wide) against its stores, so the
+    requests timed next do not share the card with it; how long that took
+    after this call and how many templates it replayed.  (A follower warms
+    only once promoted.)"""
+    warmer = httpd.RequestHandlerClass.state.prewarmer
+    t = time.perf_counter()
+    n = wait_until("the startup prewarm", lambda: warmer.stats()["startup_replayed"],
+                   timeout_s=300.0)
+    return {"replayed": n, "waited_ms": (time.perf_counter() - t) * 1e3}
+
+
+def applied_segment(base: str) -> int:
+    repl = healthz(base).get("replication") or {}
+    return int((repl.get("watermark") or {}).get("applied_segment") or 0)
+
+
+def store_query(base: str, store: str, sparql: str, want_rows=None, label: str = "",
+                headers=None) -> dict:
+    """One ``/store/query``: wall ms, rows, the launches it made (deltas
+    of the process's counters) and the answering replica."""
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    before = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    t = time.perf_counter()
+    st, body, hdrs = http_json(base, "/store/query", {"store_id": store, "sparql": sparql},
+                               headers=headers)
+    ms = (time.perf_counter() - t) * 1e3
+    after = {**K.LAUNCHES, **K.ENTRY_LAUNCHES}
+    if st != 200:
+        raise AssertionError(f"15 {label}: HTTP {st}: {str(body)[:400]}")
+    if want_rows is not None and body["data"] != want_rows:
+        raise AssertionError(f"15 {label}: {len(body['data'])} rows differ from phase 4's "
+                             f"{len(want_rows)}")
+    return {"ms": ms, "rows": len(body["data"]), "data": body["data"],
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]},
+            "replica": hdrs.get("X-Kolibrie-Replica"), "headers": hdrs}
+
+
+def launched_route(label: str, got: dict, want: dict, on_card: bool) -> None:
+    """A warm request's launches hold at least its route's kernels (a
+    background prewarm may add its own)."""
+    if on_card and any(got.get(k, 0) < n for k, n in want.items()):
+        raise AssertionError(f"15 {label}: launches {got}, the route needs {want}")
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def serve_recovery(dev, main_path: dict, tmp: str) -> tuple:
+    """15a: snapshot phase 4's databases as the server does, boot a durable
+    primary on them and time its recovery and first query."""
+    from benches.lubm import LUBM_Q2
+    from kolibrie_tpu_torch.durability import DurabilityManager
+    from kolibrie_tpu_torch.frontends import http_server as hs
+
+    dbs = {name: db for name, db, _q, _w in main_path["queries"]}
+    stores = {"lubm": dbs["q2"], "emp": dbs["employee"]}
+    data = os.path.join(tmp, "primary")
+    t = time.perf_counter()
+    m = DurabilityManager(data, device=dev)
+    m.start()
+    gen = m.snapshot(stores, {})  # _snapshot_now's layout: stores, sessions
+    m.close()
+    snap_ms = (time.perf_counter() - t) * 1e3
+    gen_dir = os.path.join(data, "snapshots", f"gen-{gen:08d}")
+    snap_bytes = sum(os.path.getsize(os.path.join(gen_dir, f)) for f in os.listdir(gen_dir))
+    repl_port = free_port()
+    t = time.perf_counter()
+    httpd = hs.make_server("127.0.0.1", 0, quiet=True, data_dir=data, recover_async=False,
+                           repl_port=repl_port, device=dev)
+    boot_ms = (time.perf_counter() - t) * 1e3
+    base = serve_in_thread(httpd)
+    hz = healthz(base)
+    if hz["status"] != "ready" or sorted(hz["watermark"]["stores"]) != sorted(SERVE_STORES):
+        raise AssertionError(f"15a: /healthz {hz}")
+    # the first query races the server's startup prewarm, as a client's would
+    first = store_query(base, "lubm", LUBM_Q2, main_path["rows"]["q2"], "15a first Q2")
+    out = {"snapshot_ms": snap_ms, "snapshot_bytes": snap_bytes, "generation": gen,
+           "boot_and_recover_ms": boot_ms,
+           "recovery": hz.get("recovery", {}).get("last_recovery") or hz.get("recovery"),
+           "first_query_ms": first["ms"], "prewarm": wait_prewarmed(httpd)}
+    log(f"15a: {out}")
+    return httpd, base, repl_port, out
+
+
+def serve_queries(dev, main_path: dict, base: str) -> dict:
+    """15b: Q2, Q9 and the employee join over HTTP, cold then warm; the
+    concurrent template burst; a write's watermark token."""
+    import threading
+
+    from benches.lubm import LUBM_Q2, LUBM_Q9
+    from kolibrie_tpu_torch import execute_query_volcano
+
+    on_card = dev.type == "cuda"
+    rows = main_path["rows"]
+    out = {}
+    for name, store, q in (("q2", "lubm", LUBM_Q2), ("q9", "lubm", LUBM_Q9),
+                           ("employee", "emp", EMPLOYEE_QUERY)):
+        cold, warm = (store_query(base, store, q, rows[name], f"15b {name}") for _ in range(2))
+        launched_route(f"15b warm {name}", warm["launches"], EXPECTED_LAUNCHES[name], on_card)
+        out[name] = {"cold_ms": cold["ms"], "warm_ms": warm["ms"], "rows": cold["rows"],
+                     "warm_launches": warm["launches"]}
+        log(f"15b {name}: {out[name]}")
+    # the template burst: 16 threads, 64 variants, against solo calls on the card
+    before = http_json(base, "/stats")[1]["stores"]["emp"]
+    texts = [employee_template(i) for i in range(SERVE_VARIANTS)]
+    answers, lat, errors = {}, [], []
+    gate = threading.Barrier(SERVE_CLIENTS)
+
+    def client(k):
+        try:
+            gate.wait()
+            for i in range(k, SERVE_VARIANTS, SERVE_CLIENTS):
+                t = time.perf_counter()
+                st, body, _ = http_json(base, "/store/query",
+                                        {"store_id": "emp", "sparql": texts[i]})
+                lat.append((time.perf_counter() - t) * 1e3)
+                if st != 200:
+                    raise AssertionError(f"HTTP {st}: {body}")
+                answers[i] = body["data"]
+        except Exception as e:  # reported below, in the main thread
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    burst_ms = (time.perf_counter() - t) * 1e3
+    if errors:
+        raise AssertionError(f"15b burst: {errors[:3]}")
+    emp = next(db for name, db, _q, _w in main_path["queries"] if name == "employee")
+    for i, text in enumerate(texts):
+        if answers[i] != execute_query_volcano(text, emp):
+            raise AssertionError(f"15b burst: variant {i} differs from a solo call")
+    after = http_json(base, "/stats")[1]["stores"]["emp"]
+    requests = after["requests"] - before["requests"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    batched = after["plan_cache"]["batched"] - before["plan_cache"]["batched"]
+    if requests != SERVE_VARIANTS or not dispatches < requests or batched < 1:
+        raise AssertionError(f"15b burst: {requests} requests in {dispatches} dispatches, "
+                             f"{batched} batched")
+    out["burst"] = {"ms": burst_ms, "requests": requests, "dispatches": dispatches,
+                    "batched": batched, "max_batch": after["max_batch"],
+                    "p50_ms": percentile(lat, 0.50), "p99_ms": percentile(lat, 0.99)}
+    st, body, _ = http_json(base, "/store/load", {
+        "store_id": "emp", "rdf": f'<{SERVE_NS}w0> <{SERVE_NS}p> "0" .\n'})
+    if st != 200 or body.get("watermark", {}).get("segment", 0) < 1:
+        raise AssertionError(f"15b write: {st} {body}")
+    out["write_watermark"] = body["watermark"]
+    log(f"15b burst: {out['burst']}; write token {body['watermark']}")
+    return out
+
+
+def prom_lines_parse(text: str) -> int:
+    """Families of a Prometheus text exposition; raises on a bad line."""
+    families = 0
+    sample = re.compile(r'[a-zA-Z_:][\w:]*(\{([a-zA-Z_]\w*="([^"\\]|\\.)*",?)*\})? '
+                        r'([-+]?[0-9.eE+-]+|[-+]?Inf|NaN)')
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families += 1
+        elif line.startswith("# HELP ") or not line.strip():
+            continue
+        elif not sample.fullmatch(line):
+            raise AssertionError(f"15c /metrics: not Prometheus text: {line!r}")
+    return families
+
+
+def serve_observability(dev, base: str, tmp: str) -> dict:
+    """15c: trace id echo and chain, /metrics, /debug/timeline, a profile
+    under load, a postmortem bundle."""
+    import threading
+
+    from benches.lubm import LUBM_Q2
+    from kolibrie_tpu_torch.obs import flightrec, spans, timeseries
+
+    on_card = dev.type == "cuda"
+    out = {}
+    spans.clear()
+    # variable names of its own: a template this process has not lowered
+    q = (TEMPLATE_PREFIXES + "SELECT ?obsEmp ?obsPay WHERE { ?obsEmp foaf:workplaceHomepage "
+         "<https://company3.example/> . ?obsEmp ds:annual_salary ?obsPay }")
+    r = store_query(base, "emp", q, None, "15c traced", {"X-Kolibrie-Trace-Id": "phase15-trace"})
+    if r["headers"].get("X-Kolibrie-Trace-Id") != "phase15-trace":
+        raise AssertionError(f"15c: trace id not echoed: {r['headers']}")
+    st, body, _ = http_json(base, "/debug/traces?trace_id=phase15-trace")
+    recs = [json.loads(ln) for ln in body.decode().splitlines() if ln]
+    names = {rec["name"] for rec in recs}
+    chain = {"http.request", "batcher.submit", "batcher.dispatch", "query.execute",
+             "query.parse", "query.plan", "device.lower", "device.dispatch", "device.collect"}
+    if not chain <= names or any(rec["trace_id"] != "phase15-trace" for rec in recs):
+        raise AssertionError(f"15c: trace holds {sorted(names)}")
+    out["trace_spans"] = len(recs)
+    st, text, hdrs = http_json(base, "/metrics")
+    out["metric_families"] = prom_lines_parse(text.decode())
+    ring = timeseries.default_ring()
+    ring.record()
+    ring.record()
+    st, tl, _ = http_json(base, "/debug/timeline?n=2")
+    if st != 200 or tl["samples"] != 2 or "kolibrie_http_requests_total" not in tl["metrics"]:
+        raise AssertionError(f"15c /debug/timeline: {st} {str(tl)[:300]}")
+    # a profile while queries run on other handler threads
+    prof_dir = os.path.join(tmp, "profile")
+    os.makedirs(prof_dir)
+    os.environ["KOLIBRIE_PROFILE_DIR"] = prof_dir
+    busy, stop = [], threading.Event()
+
+    def load():
+        while not stop.is_set():
+            busy.append(store_query(base, "lubm", LUBM_Q2, None, "15c load")["ms"])
+            busy.append(store_query(base, "emp", EMPLOYEE_QUERY, None, "15c load")["ms"])
+
+    th = threading.Thread(target=load)
+    th.start()
+    try:
+        st, prof, _ = http_json(base, f"/debug/profile?seconds={SERVE_PROFILE_S}", {})
+    finally:
+        stop.set()
+        th.join()
+        os.environ.pop("KOLIBRIE_PROFILE_DIR", None)
+    if st != 200 or prof.get("profiled") is not on_card or prof.get("backend") != (
+            "gpu" if on_card else "cpu"):
+        raise AssertionError(f"15c /debug/profile: {st} {prof}")
+    if on_card:
+        with open(os.path.join(prof["trace_dir"], "trace.json")) as fh:
+            trace = fh.read()
+        found = [n for n in SERVE_KERNEL_NAMES if n in trace]
+        if not found:
+            raise AssertionError("15c: the profile names no kernel of csrc/")
+        out["profile"] = {"trace_files": prof["trace_files"], "kernels": found,
+                          "queries_during": len(busy)}
+    st, bundle, _ = http_json(base, "/debug/bundle", {})
+    manifest = flightrec.read_bundle(bundle["path"])["manifest"]
+    if st != 200 or manifest["reason"] != "manual":
+        raise AssertionError(f"15c /debug/bundle: {st} {manifest}")
+    out["bundle_artifacts"] = sorted(manifest["artifacts"])
+    log(f"15c: {out}")
+    return out
+
+
+def q9_homed_on(core, home: str) -> str:
+    """LUBM Q9 with its variables renamed so that the router's rendezvous
+    order puts ``home`` first (the rows are Q9's)."""
+    from benches.lubm import LUBM_Q9
+    from kolibrie_tpu_torch.replication.router import template_affinity_key
+
+    for i in range(400):
+        q = re.sub(r"\?([xyz])\b", rf"?\g<1>{i}", LUBM_Q9)
+        if core.read_order(template_affinity_key(q))[0].name == home:
+            return q
+    raise AssertionError(f"15d: no Q9 renaming homed on {home}")
+
+
+def serve_replication(dev, main_path: dict, prim_base: str, repl_port: int, tmp: str) -> dict:
+    """15d: an in-process follower of the primary behind the router."""
+    from kolibrie_tpu_torch.frontends import http_server as hs
+    from kolibrie_tpu_torch.replication.router import make_router
+
+    out = {}
+    t = time.perf_counter()
+    fol = hs.make_server("127.0.0.1", 0, quiet=True, data_dir=os.path.join(tmp, "follower"),
+                         repl_source=f"127.0.0.1:{repl_port}", repl_poll_interval_s=0.05,
+                         device=dev)
+    fol_base = serve_in_thread(fol)
+    wait_until("the follower's bootstrap", lambda: healthz(fol_base)["status"] == "ready")
+    out["bootstrap_ms"] = (time.perf_counter() - t) * 1e3
+    router, core = make_router([("prim", prim_base), ("fol", fol_base)], quiet=True,
+                               probe_interval_s=3600.0, auto_promote=False)
+    router_base = serve_in_thread(router)
+    try:
+        core.probe_once()
+        if core.primary() is None or core.primary().name != "prim":
+            raise AssertionError(f"15d: router roles {core.stats()}")
+        t = time.perf_counter()
+        st, body, hdrs = http_json(router_base, "/store/load", {
+            "store_id": "emp", "rdf": f'<{SERVE_NS}w1> <{SERVE_NS}p> "1" .\n'})
+        if st != 200 or hdrs.get("X-Kolibrie-Replica") != "prim":
+            raise AssertionError(f"15d write: {st} {body} {hdrs}")
+        seg = body["watermark"]["segment"]
+        wait_until("the follower to apply the write", lambda: applied_segment(fol_base) >= seg)
+        out["write_to_applied_ms"] = (time.perf_counter() - t) * 1e3
+        q9 = q9_homed_on(core, "fol")
+        cold = store_query(router_base, "lubm", q9, main_path["rows"]["q9"], "15d Q9")
+        warm = store_query(router_base, "lubm", q9, main_path["rows"]["q9"], "15d Q9 warm")
+        if cold["replica"] != "fol" or warm["replica"] != "fol":
+            raise AssertionError(f"15d: Q9 answered by {cold['replica']}, {warm['replica']}")
+        launched_route("15d warm Q9 on the follower", warm["launches"], EXPECTED_LAUNCHES["q9"],
+                       dev.type == "cuda")
+        out["q9_follower_ms"] = {"cold": cold["ms"], "warm": warm["ms"]}
+        st, text, _ = http_json(router_base, "/fleet/metrics")
+        text = text.decode()
+        if st != 200 or 'node="prim"' not in text or 'node="fol"' not in text:
+            raise AssertionError("15d: /fleet/metrics lacks a node's labels")
+        out["fleet_metric_lines"] = len(text.splitlines())
+    finally:
+        core.stop()
+        router.shutdown()
+        hs.shutdown_gracefully(fol, timeout_s=10.0)
+        fol.server_close()
+    log(f"15d: {out}")
+    return out
+
+
+def serve_kill9(dev, main_path: dict, tmp: str) -> dict:
+    """15e: a child-process primary SIGKILLed mid-ingest; the router's
+    supervisor promotes the in-process follower."""
+    import shutil
+    import signal
+    import threading
+
+    from kolibrie_tpu_torch.frontends import http_server as hs
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.query import compile_cache
+    from kolibrie_tpu_torch.replication.router import make_router
+
+    on_card = dev.type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    # the child shares a kernel cache this process fills: no nvcc at its boot
+    cache = os.path.join(tmp, "kernel_cache")
+    target = os.path.join(cache, compile_cache.cache_namespace())
+    os.makedirs(target)
+    for lib in K._BUILD.glob("lib*.so"):
+        shutil.copy(lib, target)
+    http_port, repl_port = free_port(), free_port()
+    env = dict(os.environ, KOLIBRIE_DATA_DIR=os.path.join(tmp, "child"),
+               KOLIBRIE_REPL_PORT=str(repl_port), KOLIBRIE_COMPILE_CACHE_DIR=cache,
+               KOLIBRIE_LOG_QUIET="1", KOLIBRIE_REPL_SEAL_INTERVAL_S="0.05",
+               KOLIBRIE_FLIGHTREC_DISABLED="1", PYTHONPATH=repo)
+    child_base = f"http://127.0.0.1:{http_port}"
+    err_path = os.path.join(tmp, "child.err")
+    t = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kolibrie_tpu_torch.frontends.cli", "--serve",
+             "--device", dev.type, "--port", str(http_port)],
+            stdout=subprocess.DEVNULL, stderr=err, env=env, cwd=repo)
+    fol = router = core = None
+    try:
+        def child_ready():
+            if proc.poll() is not None:
+                raise AssertionError("15e: the child primary died:\n"
+                                     + open(err_path).read()[-4000:])
+            return healthz(child_base).get("status") == "ready"
+
+        wait_until("the child primary", child_ready, timeout_s=300.0, every_s=0.2)
+        out["child_boot_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        st, body, _ = http_json(child_base, "/store/load", {
+            "store_id": "emp", "rdf": employee_ntriples(EMPLOYEES), "mode": "device"})
+        if st != 200 or body["triples"] != 4 * EMPLOYEES:
+            raise AssertionError(f"15e load: {st} {str(body)[:300]}")
+        out["load_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        fol = hs.make_server("127.0.0.1", 0, quiet=True, data_dir=os.path.join(tmp, "fol15e"),
+                             repl_source=f"127.0.0.1:{repl_port}", repl_poll_interval_s=0.05,
+                             device=dev)
+        fol_base = serve_in_thread(fol)
+        wait_until("the follower's bootstrap", lambda: healthz(fol_base)["status"] == "ready")
+        out["follower_bootstrap_ms"] = (time.perf_counter() - t) * 1e3
+        follower = fol.RequestHandlerClass.state.replication
+        router, core = make_router([("prim", child_base), ("fol", fol_base)], quiet=True,
+                                   probe_interval_s=0.1, auto_promote=True)
+        router_base = serve_in_thread(router)
+        wait_until("the router's roles", lambda: core.primary() and core.primary().name == "prim")
+        acked, stop = [], threading.Event()
+
+        def writer():
+            i = 0
+            while not stop.is_set():
+                st, body, _ = http_json(router_base, "/store/load", {
+                    "store_id": "emp",
+                    "rdf": f'<{SERVE_NS}ingest{i}> <{SERVE_NS}seq> "{i}" .\n'}, timeout=10)
+                if st != 200:
+                    return  # the primary is gone
+                acked.append((i, body["watermark"]["segment"]))
+                i += 1
+
+        th = threading.Thread(target=writer)
+        th.start()
+        try:
+            wait_until("acknowledged writes", lambda: len(acked) > SERVE_WRITES_CONFIRMED)
+            seg = acked[SERVE_WRITES_CONFIRMED][1]
+            wait_until("the follower to apply them", lambda: follower.applied_segment >= seg)
+            killed_at = len(acked)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+            t = time.perf_counter()
+            wait_until("the promotion", lambda: core.primary() and core.primary().name == "fol",
+                       timeout_s=60.0)
+            out["kill_to_promoted_ms"] = (time.perf_counter() - t) * 1e3
+        finally:
+            stop.set()
+            th.join()
+        applied = follower.applied_segment
+        confirmed = {i for i, s in acked if s <= applied}
+        st, body, _ = http_json(router_base, "/store/query", {
+            "store_id": "emp", "sparql": f"SELECT ?o WHERE {{ ?s <{SERVE_NS}seq> ?o }}"})
+        present = {int(r[0]) for r in body["data"]}
+        if st != 200 or not confirmed <= present or len(confirmed) <= SERVE_WRITES_CONFIRMED:
+            raise AssertionError(f"15e: {len(confirmed)} confirmed writes, "
+                                 f"{len(confirmed - present)} missing after the promotion")
+        st, body, hdrs = http_json(router_base, "/store/load", {
+            "store_id": "emp", "rdf": f'<{SERVE_NS}after> <{SERVE_NS}p> "promoted" .\n'})
+        if st != 200 or hdrs.get("X-Kolibrie-Replica") != "fol":
+            raise AssertionError(f"15e: the promoted node refused a write: {st} {body}")
+        join = store_query(router_base, "emp", EMPLOYEE_QUERY, main_path["rows"]["employee"],
+                           "15e join")
+        join = store_query(router_base, "emp", EMPLOYEE_QUERY, main_path["rows"]["employee"],
+                           "15e join warm")
+        launched_route("15e employee join on the promoted node", join["launches"],
+                       EXPECTED_LAUNCHES["employee"], on_card)
+        out.update({"acked": len(acked), "acked_at_kill": killed_at,
+                    "confirmed": len(confirmed), "present": len(present),
+                    "applied_segment": applied, "join_ms": join["ms"],
+                    "join_launches": join["launches"], "child_returncode": proc.returncode})
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if core is not None:
+            core.stop()
+            router.shutdown()
+        if fol is not None:
+            hs.shutdown_gracefully(fol, timeout_s=10.0)
+            fol.server_close()
+    log(f"15e: {out}")
+    return out
+
+
+def run_serving_phase(dev, main_path: dict) -> dict:
+    """Phase 15 (15a-15e), its launches counted from just before 15a to just
+    after 15e.  The servers point the kernel build at their data dirs'
+    compile cache; the process's build directory is put back afterwards."""
+    import tempfile
+
+    from kolibrie_tpu_torch.frontends import http_server as hs
+    from kolibrie_tpu_torch.obs import log as obslog
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.query import compile_cache
+
+    t0 = time.perf_counter()
+    captured, report = {}, {}
+    obslog.set_quiet(True)
+    K.reset_launches()
+    undo = recorder_install(captured)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            prim, base, repl_port, report["15a"] = serve_recovery(dev, main_path, tmp)
+            try:
+                report["15b"] = serve_queries(dev, main_path, base)
+                report["15c"] = serve_observability(dev, base, tmp)
+                report["15d"] = serve_replication(dev, main_path, base, repl_port, tmp)
+            finally:
+                hs.shutdown_gracefully(prim, timeout_s=10.0)
+                prim.server_close()
+            report["15e"] = serve_kill9(dev, main_path, tmp)
+    finally:
+        undo()
+        obslog.set_quiet(False)
+        compile_cache._active_dir = None
+        K.set_build_dir(K._BUILD)
+    launches = {**K.LAUNCHES}
+    if dev.type == "cuda":
+        missing = [k for k in ("merge_path_join", "lex_probe_select", "lex_probe_validate")
+                   if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"phase 15 launched no {missing}: {launches}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 launches: {launches}; {report['seconds']:.1f} s")
+    return {"report": report, "launches": launches, "captured": captured}
+
+
 def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
     """One kernel row: its check against the plain version on ``args``,
     device times of the kernel, the plain version and the library call,
@@ -4584,7 +5159,8 @@ def load_parent_kernels(root: str):
 
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
-    prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, resilience: dict, parent=None,
+    prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, resilience: dict, serving: dict,
+    parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -4597,7 +5173,8 @@ def kernels_at_main_path_shapes(
     statements for the ML path's merge path and filter, phase 13's
     repeated-query runs (13a-13e) for the merge path and the lex probes,
     phase 14 (14a-14d) for the merge path, the lex probes and the RULE's
-    fused filter.  The merge path's and the
+    fused filter, phase 15 (15a-15e, the requests the servers answered)
+    for the merge path and the lex probes.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -4740,6 +5317,17 @@ def kernels_at_main_path_shapes(
     line.append(timed_row("filter_mask[resilience]", csrc + "filter_mask.cu", pk + "887",
                           l14.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
                           check_filter, filter_library(fargs)))
+    # phase 15: its launches (15a-15e), at the largest calls its servers made
+    vc, l15 = serving["captured"], serving["launches"]
+    for name, src, body, fn, plain, nbytes, check in (
+            ("merge_path_join", "merge_join.cu", "181", K.merge_path, K.merge_path_plain,
+             merge_path_bytes, check_merge_path),
+            ("lex_probe_select", "lex_probe.cu", "743", K.lex_probe_select,
+             K.lex_probe_select_plain, select_bytes, check_select),
+            ("lex_probe_validate", "lex_probe.cu", "783", K.lex_probe_validate,
+             K.lex_probe_validate_plain, validate_bytes, check_validate)):
+        line.append(timed_row(f"{name}[serving]", csrc + src, pk + body, l15.get(name, 0),
+                              vc[name][1], fn, plain, nbytes, check))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -4846,10 +5434,13 @@ def main(argv=None) -> int:
     # ---- 14. resilience and durability
     resilience = run_resilience_phase(dev, main_path, counters)
 
+    # ---- 15. serving: the HTTP server, the router and a follower
+    serving = run_serving_phase(dev, main_path)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
         main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, repeated,
-        resilience, parent,
+        resilience, serving, parent,
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,9 +25,30 @@ import torch
 
 from kolibrie_tpu_torch.backend import DeviceLike, resolve_device
 from kolibrie_tpu_torch.core.triple import Triple
+from kolibrie_tpu_torch.obs.metrics import counter as _obs_counter
+from kolibrie_tpu_torch.obs.metrics import gauge as _obs_gauge
 from kolibrie_tpu_torch.ops import round_cap
 
 _EMPTY = np.empty(0, dtype=np.uint32)
+
+# the reference store's metric families (``kolibrie_tpu/core/store.py``)
+_H2D_BYTES = _obs_counter(
+    "kolibrie_store_h2d_bytes_total",
+    "Bytes uploaded host->device by the store, by segment kind.",
+    labels=("segment",),
+)
+_DELTA_MERGES = _obs_counter(
+    "kolibrie_store_delta_merges_total",
+    "Delta segments folded into the base segment (rare full uploads).",
+)
+_ORDER_REBUILDS = _obs_counter(
+    "kolibrie_store_order_rebuilds_total",
+    "Full from-scratch sort-order rebuilds (non-incremental compactions).",
+)
+_DELTA_ROWS = _obs_gauge(
+    "kolibrie_store_delta_rows",
+    "Current delta occupancy (add rows + tombstones vs the base segment).",
+)
 
 _VERSION_COUNTER = itertools.count(1)
 
@@ -415,6 +436,7 @@ class ColumnarTripleStore:
         self._delta_del_pos = {}
         self._device_segments = {}
         self._device_delta = {}
+        _DELTA_ROWS.set(0)
 
     def compact(self) -> None:
         if not self._pending_add and not self._pending_del:
@@ -550,6 +572,9 @@ class ColumnarTripleStore:
         self._version = next(_VERSION_COUNTER)
         if len(add_set) + len(del_set) > self.delta_threshold:
             self._merge_base()
+            _DELTA_MERGES.inc()
+        else:
+            _DELTA_ROWS.set(len(add_set) + len(del_set))
 
     def _compact_full(self, a_s, a_p, a_o, dels) -> None:
         """Full rebuild: concat + lexsort + unique, then one vectorized
@@ -588,6 +613,7 @@ class ColumnarTripleStore:
         self._s, self._p, self._o = s, p, o
         self._invalidate()
         self._merge_base()
+        _ORDER_REBUILDS.inc()
 
     # --------------------------------------------------------------- access
 
@@ -769,6 +795,7 @@ class ColumnarTripleStore:
             dev = torch.from_numpy(buf).to(self.device)
             base = (dev[0], dev[1], dev[2])
             self._device_segments[name] = base
+            _H2D_BYTES.labels("base").inc(buf.nbytes)
         delta = self._device_delta.get(name)
         if delta is None:
             dcap = self.delta_device_cap
@@ -782,6 +809,7 @@ class ColumnarTripleStore:
             dev = torch.from_numpy(buf).to(self.device)
             delta = ((dev[0], dev[1], dev[2]), dev[3])
             self._device_delta[name] = delta
+            _H2D_BYTES.labels("delta").inc(buf.nbytes)
         return base, delta[0], delta[1]
 
     def contains(self, s: int, p: int, o: int) -> bool:

@@ -231,6 +231,15 @@ def _consume_growth(db, meta: dict, tail: bytes) -> int:
                 f"dictionary misalignment on replay: block starts at {ts} "
                 f"vs next {nxt}"
             )
+        overlap = min(nxt - ts, tn)
+        if d.id_to_str[ts : ts + overlap] != terms[:overlap]:
+            # the overlap must be terms a snapshot already made durable; a
+            # replica that interned on its own (an aggregate read on a
+            # follower) would otherwise decode this record to other terms
+            raise DurabilityError(
+                f"dictionary divergence on replay: ids {ts}..{ts + overlap - 1} hold "
+                "terms this log did not write"
+            )
         fresh = terms[nxt - ts :]  # overlap prefix already durable
         for s in fresh:
             tid = len(d.id_to_str)

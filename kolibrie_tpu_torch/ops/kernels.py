@@ -41,6 +41,7 @@ from kolibrie_tpu_torch.backend import SENT
 __all__ = [
     "LAUNCHES",
     "ENTRY_LAUNCHES",
+    "count_launch",
     "reset_launches",
     "build_kernels",
     "build_log",
@@ -78,10 +79,22 @@ ENTRY_LAUNCHES: Dict[str, int] = {
 }
 
 
+# Kernels launch from many threads at once (the HTTP server's handler
+# threads, the batcher's leader): every count goes through this lock.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str, counts: Dict[str, int] = LAUNCHES) -> None:
+    """Add one to ``counts[name]`` (``LAUNCHES`` or ``ENTRY_LAUNCHES``)."""
+    with _LAUNCH_LOCK:
+        counts[name] += 1
+
+
 def reset_launches() -> None:
-    for d in (LAUNCHES, ENTRY_LAUNCHES):
-        for k in d:
-            d[k] = 0
+    with _LAUNCH_LOCK:
+        for d in (LAUNCHES, ENTRY_LAUNCHES):
+            for k in d:
+                d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +376,7 @@ def merge_path(lidx_c, low_c, cum, total, ln: int, rn: int, cap: int):
         _stream(dev),
     )
     _check(err, "merge_path_join")
-    LAUNCHES["merge_path_join"] += 1
+    count_launch("merge_path_join")
     return li, ri, valid
 
 
@@ -391,7 +404,7 @@ def _merge_join_core(lkey, rkey, cap_r: Optional[int], entry: str):
     if exact:
         li, ri, valid = li[:n], ri[:n], valid[:n]
     if dev.type == "cuda":
-        ENTRY_LAUNCHES[entry] += 1
+        count_launch(entry, ENTRY_LAUNCHES)
     return li, ri, valid, total
 
 
@@ -548,7 +561,7 @@ def lex_probe_select(kk, ch, in_range, accessors):
         _stream(dev),
     )
     _check(err, "lex_probe_select")
-    LAUNCHES["lex_probe_select"] += 1
+    count_launch("lex_probe_select")
     return val, ok, is_base
 
 
@@ -591,7 +604,7 @@ def lex_probe_validate(ok, is_base, ch, accessors):
         _stream(dev),
     )
     _check(err, "lex_probe_validate")
-    LAUNCHES["lex_probe_validate"] += 1
+    count_launch("lex_probe_validate")
     return out
 
 
@@ -673,7 +686,7 @@ def filter_mask(
         _stream(s.device),
     )
     _check(err, "filter_mask")
-    LAUNCHES["filter_mask"] += 1
+    count_launch("filter_mask")
     return mask
 
 
@@ -745,7 +758,7 @@ def tag_combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
         _stream(a.device),
     )
     _check(err, "tag_combine")
-    LAUNCHES["tag_combine"] += 1
+    count_launch("tag_combine")
     return out
 
 

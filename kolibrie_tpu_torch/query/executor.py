@@ -139,8 +139,8 @@ _PLAN_CACHE_EVENTS = obs_metrics.counter(
     labels=("event",),
 )
 _BATCHED_QUERIES = obs_metrics.counter(
-    "kolibrie_batched_queries_total",
-    "queries answered through a batched same-template dispatch",
+    "kolibrie_query_batched_total",
+    "queries served by a stacked-parameter batch dispatch",
 )
 # fixed-label children hoisted out of the per-query hot path
 _QUERY_LAT_DEVICE = _QUERY_LAT.labels("device")

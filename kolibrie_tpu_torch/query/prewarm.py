@@ -60,7 +60,8 @@ _IDLE_RETRIES = 40  # ~2s of admission pressure before skipping a template
 
 def warm_one(db, query: str, lock: Optional[threading.Lock] = None) -> dict:
     """Execute ``query`` against ``db`` with interpreter routing forced
-    off, returning ``{ms, source, rows}``.  The execution IS the warm: it
+    off, returning ``{ms, source, rows}`` (``{skipped}`` for a statement
+    that is not a read-only SELECT).  The execution IS the warm: it
     lowers the specialized plan, loads (or builds) the kernel libraries,
     converges the template's capacities and marks the shape compiled for
     auto-mode routing."""
@@ -69,6 +70,12 @@ def warm_one(db, query: str, lock: Optional[threading.Lock] = None) -> dict:
     from kolibrie_tpu_torch.query.template import fingerprint_query
     from kolibrie_tpu_torch.query.parser import parse_combined_query
 
+    if not _read_only(parse_combined_query(query, db.prefixes)):
+        # the manifest records every statement the executor ran; replaying
+        # an INSERT, DELETE, RULE or MODEL/TRAIN would change the store
+        # (and a follower's dictionary, which must match its primary's)
+        _SKIPPED.inc()
+        return {"skipped": "not a read-only SELECT"}
     t0 = time.perf_counter()
     with compile_cache.suppress_recording(), override_mode("off"):
         if lock is not None:
@@ -82,6 +89,21 @@ def warm_one(db, query: str, lock: Optional[threading.Lock] = None) -> dict:
         fp, _ = fingerprint_query(parse_combined_query(query, db.prefixes))
     per = plan_cache_info(db)["per_template"].get(fp, {})
     return {"ms": round(ms, 3), "source": per.get("source"), "rows": len(rows)}
+
+
+def _read_only(cq) -> bool:
+    """A SELECT that changes nothing: no update, rule, model or stream
+    registration rides along."""
+    return cq.select is not None and not (
+        cq.register is not None
+        or cq.rules
+        or cq.insert is not None
+        or cq.delete is not None
+        or cq.models
+        or cq.neural_relations
+        or cq.train_decls
+        or cq.ml_predict is not None
+    )
 
 
 def replay_manifest(
@@ -127,8 +149,9 @@ def _warm_entry(
         try:
             t0 = time.perf_counter()
             res = warm_one(db, query, lock)
-            _COMPILED.inc()
-            _WARM_LAT.observe(time.perf_counter() - t0)
+            if "skipped" not in res:
+                _COMPILED.inc()
+                _WARM_LAT.observe(time.perf_counter() - t0)
             out["targets"][label] = res
         except Exception as e:  # a poisoned template must not stop the sweep
             _ERRORS.inc()
@@ -229,3 +252,10 @@ class PrewarmManager:
                 "last_sweep": len(self.last_results),
             }
 
+
+
+# Debug-build runtime check of the # guarded by: annotations above
+# (no-op unless KOLIBRIE_DEBUG_LOCKS=1 — see analysis/lockcheck.py)
+from kolibrie_tpu_torch.analysis import lockcheck as _lockcheck  # noqa: E402
+
+_lockcheck.auto_instrument(globals())

@@ -49,6 +49,7 @@ import torch
 
 from kolibrie_tpu_torch.backend import _LPAD, _RPAD, key1, pack2
 from kolibrie_tpu_torch.core.rule import FilterCondition, Rule
+from kolibrie_tpu_torch.obs import metrics as _obs_metrics
 from kolibrie_tpu_torch.ops import round_cap as _round_cap
 from kolibrie_tpu_torch.ops.device_join import (
     _row_membership,
@@ -57,6 +58,22 @@ from kolibrie_tpu_torch.ops.device_join import (
     semi_join_mask,
 )
 from kolibrie_tpu_torch.ops.kernels import filter_mask, ranked_merge_join_indices
+
+_FIXPOINT_ROUNDS = _obs_metrics.histogram(
+    "kolibrie_fixpoint_rounds",
+    "semi-naive rounds per fixpoint run (chunked path: productive rounds)",
+    buckets=_obs_metrics.DEFAULT_COUNT_BUCKETS,
+)
+_FIXPOINT_DERIVED = _obs_metrics.histogram(
+    "kolibrie_fixpoint_derived_facts",
+    "facts derived per fixpoint run",
+    buckets=_obs_metrics.DEFAULT_COUNT_BUCKETS,
+)
+_FIXPOINT_DELTA = _obs_metrics.histogram(
+    "kolibrie_fixpoint_delta_facts",
+    "delta size fed to each chunked fixpoint round",
+    buckets=_obs_metrics.DEFAULT_COUNT_BUCKETS,
+)
 
 __all__ = ["Unsupported", "DeviceFixpoint", "infer_semi_naive_device"]
 
@@ -686,6 +703,7 @@ class DeviceFixpoint:
             )
             if code == 0:
                 self.last_rounds = rounds
+                _FIXPOINT_ROUNDS.observe(rounds)
                 return ofs, ofp, ofo, on, caps
             if code & 8:
                 raise RuntimeError(
@@ -713,7 +731,9 @@ class DeviceFixpoint:
         )
         self.converged_caps = caps
         self._last_state = (ofs, ofp, ofo, n_out, n0)
-        return self.materialize_to_host()
+        derived = self.materialize_to_host()
+        _FIXPOINT_DERIVED.observe(derived)
+        return derived
 
     def infer_chunked(
         self,
@@ -751,6 +771,7 @@ class DeviceFixpoint:
         n_delta = n0
 
         for _round in range(ROUND_LIMIT):
+            _FIXPOINT_DELTA.observe(n_delta)
             while True:
                 # accumulator: D rows + the spare slot of dropped rows
                 accs, accp, acco = (
@@ -810,6 +831,7 @@ class DeviceFixpoint:
             raise RuntimeError("device fixpoint hit the round limit before convergence")
 
         self.last_rounds = _round  # productive rounds (final is empty)
+        _FIXPOINT_ROUNDS.observe(_round)
         self.converged_caps = _Caps(F, D, J)
         self._last_state = (fs, fp, fo, n_facts, n0)
         return self.materialize_to_host()

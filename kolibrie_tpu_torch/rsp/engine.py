@@ -897,3 +897,10 @@ class RSPEngine:
         for recv in getattr(self, "_window_receivers", []):
             recv.put(None)
         self._result_queue.put(None)  # type: ignore[arg-type]
+
+
+# Debug-build runtime check of the # guarded by: annotations above
+# (no-op unless KOLIBRIE_DEBUG_LOCKS=1 — see analysis/lockcheck.py)
+from kolibrie_tpu_torch.analysis import lockcheck as _lockcheck  # noqa: E402
+
+_lockcheck.auto_instrument(globals())

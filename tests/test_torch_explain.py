@@ -26,11 +26,20 @@ from kolibrie_tpu_torch.optimizer import mqo as port_mqo
 from kolibrie_tpu_torch.optimizer import stats_advisor as port_sa
 from kolibrie_tpu_torch.query.engine import QueryEngine as PortEngine
 from kolibrie_tpu_torch.query.executor import plan_cache_info as port_info
+from jax_compile_cache import fresh_jax_compile_cache
 from test_torch_clauses import PREFIXES, employee_db, pair, rdf_star_db
 from test_torch_prepared import graph_pair
 
 UB = "PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>\n"
 JOIN_Q = UB + "SELECT ?x ?c WHERE { ?x ub:worksFor ?d . ?x ub:teacherOf ?c . }"
+
+
+@pytest.fixture(autouse=True)
+def _reference_compile_cache(tmp_path):
+    """``source: compiled`` in the reference's EXPLAIN must not depend on
+    which modules ran before this one in the process."""
+    with fresh_jax_compile_cache(tmp_path / "jax_cache"):
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -179,6 +179,28 @@ except RuntimeError as e:
     assert "CUDA" in str(e)
 else:
     raise AssertionError("a durability manager without a device and no CUDA card must raise")
+import kolibrie_tpu_torch.frontends
+import kolibrie_tpu_torch.replication
+from kolibrie_tpu_torch.analysis import lockcheck
+from kolibrie_tpu_torch.frontends import cli, http_server, router_main, rules
+from kolibrie_tpu_torch.obs import export, flightrec, log as obslog, promtext, timeseries
+from kolibrie_tpu_torch.replication import follower, primary, protocol, router
+assert lockcheck.selftest()
+obslog.set_quiet(True)
+httpd = http_server.make_server("127.0.0.1", 0, quiet=True, device="cpu")
+httpd.server_close()
+try:
+    http_server.make_server("127.0.0.1", 0, quiet=True)
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("a server without a device and no CUDA card must raise")
+try:
+    cli.main(["--query", "SELECT ?s WHERE { ?s ?p ?o }"])
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("the CLI without --device and no CUDA card must raise")
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -253,11 +275,16 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     pkg = REPO / "kolibrie_tpu_torch"
     walked = {f.parent.name for f in pkg.rglob("*.py")}
     assert {"rsp", "obs", "resilience", "reasoner", "optimizer", "ops", "native", "ml",
-            "parallel", "durability"} <= walked, walked
+            "parallel", "durability", "frontends", "replication", "analysis"} <= walked, walked
     for name in ("admission", "breaker", "deadline", "errors", "faultinject", "supervisor"):
         assert (pkg / "resilience" / f"{name}.py").exists(), name
     for name in ("fsio", "wal", "manager"):
         assert (pkg / "durability" / f"{name}.py").exists(), name
+    for path in ("obs/log", "obs/export", "obs/flightrec", "obs/promtext", "obs/timeseries",
+                 "analysis/lockcheck", "frontends/http_server", "frontends/cli",
+                 "frontends/rules", "frontends/router_main", "replication/protocol",
+                 "replication/primary", "replication/follower", "replication/router"):
+        assert (pkg / f"{path}.py").exists(), path
     files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",
         REPO / "chip_profile.py",

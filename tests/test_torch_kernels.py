@@ -562,3 +562,36 @@ def test_semi_join_mask_matches_jax():
     jm = np.asarray(jdj.semi_join_mask(lk, rk, rv))
     tm = tdj.semi_join_mask(carrier(lk), carrier(rk), torch.from_numpy(rv))
     np.testing.assert_array_equal(tm.numpy(), jm)
+
+
+def test_launch_counts_survive_concurrent_threads():
+    """The serving layer launches kernels from many threads: eight threads
+    counting at once lose no launch, and a reset zeroes every count."""
+    import threading
+
+    tk.reset_launches()
+    start = threading.Barrier(8)
+
+    def work(name, counts):
+        start.wait()
+        for _ in range(5000):
+            tk.count_launch(name, counts)
+
+    threads = [
+        threading.Thread(target=work, args=(name, counts))
+        for name, counts in (
+            ("merge_path_join", tk.LAUNCHES), ("lex_probe_select", tk.LAUNCHES),
+            ("merge_path_join", tk.LAUNCHES), ("filter_mask", tk.LAUNCHES),
+            ("merge_path_join", tk.LAUNCHES), ("merge_join", tk.ENTRY_LAUNCHES),
+            ("merge_join", tk.ENTRY_LAUNCHES), ("tag_combine", tk.LAUNCHES),
+        )
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert tk.LAUNCHES == {"merge_path_join": 15000, "lex_probe_select": 5000,
+                           "lex_probe_validate": 0, "filter_mask": 5000, "tag_combine": 5000}
+    assert tk.ENTRY_LAUNCHES["merge_join"] == 10000
+    tk.reset_launches()
+    assert not any(tk.LAUNCHES.values()) and not any(tk.ENTRY_LAUNCHES.values())
