@@ -263,8 +263,29 @@ result line):
             segment the follower had applied is there, and the promoted node
             takes a write and answers the employee join with the merge path.
             Counters zeroed just before 15a, read after 15e.
+16. multi-device — four shards over the cards present (``make_mesh(4,
+            devices=[cuda:i % count])``: all on one card with one card) on
+            phase 4's LUBM-1000.  16a: ``ShardedTripleStore.from_columns``,
+            both mirrors' occupancy and imbalance, peak memory, and
+            ``dist_bgp_join_count(advisor, teacherOf)`` equal to numpy's
+            count.  16b: ``DistQueryExecutor`` Q2 and Q9 give phase 4's rows;
+            warm ``run_device`` times and busy share.  16c:
+            ``DistGeneralReasoner`` over phase 6's closure rules: its fact
+            set equals phase 6's.  16d: ``attach_sharded(lubm, mesh)``, 64
+            variants of the worksFor/teacherOf template through
+            ``execute_queries_batched`` equal to the single-device answers
+            (``stats()``: a dispatch, 64 batched queries, no fallback); an
+            INSERT DATA of 1,000 triples refreshes the delta with
+            ``sharded_compile_stats()`` unchanged and the answers equal to
+            the single-device run; then the 64 variants from 16 threads
+            over HTTP against ``make_server(data_dir=..., mesh=mesh)``
+            booted on a snapshot of that store (``/stats`` ``sharding``,
+            every ``kolibrie_shard_*`` / ``kolibrie_store_shard*`` family on
+            ``/metrics``).  Every step launches the merge path and the fused
+            filter and no plain version; no attach error, no fallback.
+            Counters zeroed just before 16a, read after 16d.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7-15), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-16), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -1443,8 +1464,9 @@ def run_closure(dev, lubm) -> dict:
     if not same_facts(host, r):
         raise AssertionError("closure: the card's fact set differs from the host strategy's")
     log(f"closure: fact set equals the host strategy's ({time.perf_counter() - t0:.1f} s)")
+    facts = r.facts.columns()  # phase 16c's expected closure
     del host, r
-    return {"runs": runs, "captured": record_closure_inputs(fresh)}
+    return {"runs": runs, "captured": record_closure_inputs(fresh), "facts": facts}
 
 
 def filter_recorder(captured: dict, fn):
@@ -5063,6 +5085,425 @@ def run_serving_phase(dev, main_path: dict) -> dict:
     return {"report": report, "launches": launches, "captured": captured}
 
 
+# ------------------------------------------ phase 16: the multi-device layer
+
+MESH_SHARDS = 4  # shards over the cards present (all on cuda:0 with one card)
+MESH_VARIANTS = 64  # 16d: constant-variants of the serving template
+MESH_CLIENTS = 16  # 16d: HTTP client threads
+MESH_INSERT = 1_000  # 16d: triples of the INSERT DATA between the two groups
+MESH_NS = "http://phase16.example/"
+MESH_TEMPLATE = (
+    "PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>\n"
+    "SELECT ?x ?c WHERE {{ ?x ub:worksFor <{dept}> . ?x ub:teacherOf ?c . }}"
+)
+MESH_DEPTS = ("PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>\n"
+              "SELECT DISTINCT ?d WHERE { ?x ub:worksFor ?d . }")
+MESH_KERNELS = ("filter_mask", "merge_path_join")
+
+
+def mesh_devices(dev, n: int) -> list:
+    """``n`` shard placements over the cards present, round robin (the
+    CPU ``n`` times for a rehearsal)."""
+    import torch
+
+    if dev.type != "cuda":
+        return [torch.device("cpu")] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def mesh_insert(depts: list) -> str:
+    """16d's INSERT DATA: ``MESH_INSERT`` triples, half new faculty working
+    for the template's departments, half the courses they teach."""
+    lines = []
+    for i in range(MESH_INSERT // 2):
+        f = f"<{MESH_NS}faculty{i}>"
+        lines.append(f"{f} ub:worksFor <{depts[i % len(depts)]}> .")
+        lines.append(f"{f} ub:teacherOf <{MESH_NS}course{i}> .")
+    return ("PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>\n"
+            "INSERT DATA { " + " ".join(lines) + " }")
+
+
+class PlainCalls:
+    """Counts calls of the kernels' plain versions while active (a card run
+    must make none on the mesh path)."""
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.ops import kernels as K
+
+        self.counts = {"merge_path_plain": 0, "filter_mask_plain": 0}
+        self._saved = (K.merge_path_plain, K.filter_mask_plain)
+
+        def spy(name, fn):
+            def wrapped(*a, **k):
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return wrapped
+
+        K.merge_path_plain = spy("merge_path_plain", self._saved[0])
+        K.filter_mask_plain = spy("filter_mask_plain", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from kolibrie_tpu_torch.ops import kernels as K
+
+        K.merge_path_plain, K.filter_mask_plain = self._saved
+
+
+def mesh_filter_recorder(captured: dict):
+    """Keep the mesh path's largest ``filter_mask`` call (no readback) for
+    phase 5; returns the undo."""
+    from kolibrie_tpu_torch.parallel import sharded_serving as SS
+    from kolibrie_tpu_torch.reasoner import device_fixpoint as FX
+
+    saved = (FX.filter_mask, SS.filter_mask)
+
+    def wrapped(s_, p_, o_, s_c=-1, p_c=-1, o_c=-1, *rest):
+        if s_.shape[0] >= captured.get("filter_mask", (0, None))[0]:
+            kw = {"s_const": s_c, "p_const": p_c, "o_const": o_c, "o_op": -1, "o_cmp": 0}
+            captured["filter_mask"] = (s_.shape[0], (s_, p_, o_, kw))
+        return saved[0](s_, p_, o_, s_c, p_c, o_c, *rest)
+
+    FX.filter_mask = SS.filter_mask = wrapped
+
+    def undo():
+        FX.filter_mask, SS.filter_mask = saved
+
+    return undo
+
+
+def step_launches(fn):
+    """``(result, launches, wall ms)`` of ``fn()``: the launch counters'
+    growth over the call, and its wall (synchronised)."""
+    import torch
+
+    from kolibrie_tpu_torch.ops import kernels as K
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    before = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    ms = (time.perf_counter() - t) * 1e3
+    return out, {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}, ms
+
+
+def need_kernels(label: str, launches: dict, on_card: bool, names=MESH_KERNELS) -> None:
+    if on_card:
+        missing = [k for k in names if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"16{label} launched no {missing}: {launches}")
+
+
+def plan_exchange_bytes(ex) -> int:
+    """Bytes the all-to-all exchanges of a ``DistQueryExecutor`` plan move
+    at its converged capacities: before each join step every shard sends
+    its binding table (8-byte ID carriers a column, a 1-byte validity) in
+    ``n`` fixed buckets of ``bucket_cap`` rows."""
+    bound = {v for v, _ in ex.premises[ex.seed].vars}
+    total = 0
+    for j, _kv, _kpos, _extra in ex.steps:
+        total += (8 * len(bound) + 1) * ex.n * ex.n * ex.bucket_cap
+        bound |= {v for v, _ in ex.premises[j].vars}
+    return total if ex.n > 1 else 0
+
+
+def mesh_store_step(dev, mesh, lubm) -> tuple:
+    """16a: partition LUBM-1000 over the mesh, both mirrors' occupancy and
+    imbalance, peak memory, and the co-located BGP join count against
+    numpy (``benches/bench_lubm.py``'s formula)."""
+    import numpy as np
+    import torch
+
+    from kolibrie_tpu_torch.parallel import ShardedTripleStore, dist_bgp_join_count
+    from kolibrie_tpu_torch.parallel.dist_join import dist_bgp_join_count_device
+
+    on_card = dev.type == "cuda"
+    s, p, o = lubm.store.columns()
+    resident = None
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    store, _l, ms = step_launches(lambda: ShardedTripleStore.from_columns(mesh, s, p, o))
+    occ = {name: [int(v.sum()) for v in valid]
+           for name, valid in (("subj", store.by_subj_valid), ("obj", store.by_obj_valid))}
+    imb = {k: max(v) / (sum(v) / len(v)) for k, v in occ.items()}
+    d = lubm.dictionary
+    p1 = d.lookup("http://swat.cse.lehigh.edu/onto/univ-bench.owl#advisor")
+    p2 = d.lookup("http://swat.cse.lehigh.edu/onto/univ-bench.owl#teacherOf")
+    count = dist_bgp_join_count(store, p1, p2)
+    lv, lc = np.unique(o[p == p1], return_counts=True)
+    rv, rc = np.unique(s[p == p2], return_counts=True)
+    _, li, ri = np.intersect1d(lv, rv, return_indices=True)
+    want = int((lc[li] * rc[ri]).sum())
+    if count != want or sum(occ["subj"]) != len(s) or sum(occ["obj"]) != len(s):
+        raise AssertionError(f"16a: count {count} (numpy {want}), occupancy {occ}")
+    count_ms = time_ms(lambda: dist_bgp_join_count_device(store, p1, p2), reps=5)[0] if on_card else None
+    out = {"partition_ms": ms, "cap": store.cap, "occupancy": occ, "imbalance": imb,
+           "advisor_teacherOf": count, "count_device_ms": count_ms, "resident_bytes": resident,
+           "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None}
+    log(f"16a: {out}")
+    return store, out
+
+
+def mesh_query_step(dev, mesh, lubm, store, main_path: dict) -> dict:
+    """16b: Q2 and Q9 through ``DistQueryExecutor`` over the store of 16a;
+    rows equal to phase 4's single-device rows; warm ``run_device`` times
+    (synchronised) and a busy share."""
+    from benches.lubm import LUBM_Q2, LUBM_Q9
+    from kolibrie_tpu_torch.parallel import DistQueryExecutor
+
+    on_card = dev.type == "cuda"
+    out = {}
+    for name, q in (("q2", LUBM_Q2), ("q9", LUBM_Q9)):
+        ex = DistQueryExecutor(mesh, lubm, q, store=store)
+        rows, launches, ms = step_launches(ex.run)
+        if rows != main_path["rows"][name]:
+            raise AssertionError(f"16b {name}: {len(rows)} rows differ from phase 4's "
+                                 f"{len(main_path['rows'][name])}")
+        need_kernels(f"b {name}", launches, on_card)
+        warm = [step_launches(ex.run_device)[2] for _ in range(3)]
+        out[name] = {"rows": len(rows), "run_ms": ms, "run_device_ms": warm,
+                     "caps": [ex.join_cap, ex.bucket_cap], "launches": launches,
+                     "exchanged_bytes": plan_exchange_bytes(ex),
+                     "busy": busy_share(dev, ex.run_device) if on_card else None}
+        log(f"16b {name}: {out[name]}")
+    return out
+
+
+def mesh_closure_step(dev, mesh, lubm, closure: dict) -> dict:
+    """16c: the general distributed fixpoint over phase 6's closure rules;
+    its fact set must equal phase 6's closure."""
+    import numpy as np
+
+    from kolibrie_tpu_torch import Reasoner
+    from kolibrie_tpu_torch.parallel import DistGeneralReasoner
+
+    s, p, o = lubm.store.columns()
+    r = Reasoner(lubm.dictionary, device=dev)
+    r.facts.add_batch(s, p, o)
+    add_lubm_closure_rules(r)
+    len(r.facts)
+    dr = DistGeneralReasoner(mesh, r)
+    derived, launches, ms = step_launches(dr.infer)
+    want = closure["facts"]
+    if derived != CLOSURE_DERIVED or not all(
+            np.array_equal(x, y) for x, y in zip(r.facts.columns(), want)):
+        raise AssertionError(f"16c: {derived} derived; the fact set differs from phase 6's")
+    need_kernels("c", launches, dev.type == "cuda")
+    out = {"derived": derived, "ms": ms, "rounds": dr.rounds, "attempts": dr.attempts,
+           "caps": [dr.fact_cap, dr.delta_cap, dr.join_cap, dr.bucket_cap], "launches": launches}
+    log(f"16c: {out}")
+    return out
+
+
+class OnlyTemplate:
+    """While active, the prewarm manifest holds only the fingerprint of
+    ``query`` (a server booted inside warms that template, mesh included,
+    and not the hundreds the earlier phases recorded)."""
+
+    def __init__(self, query: str, db):
+        from kolibrie_tpu_torch.query.parser import parse_combined_query
+        from kolibrie_tpu_torch.query.template import fingerprint_query
+
+        self.fp = fingerprint_query(parse_combined_query(query, db.prefixes))[0]
+
+    def __enter__(self):
+        from kolibrie_tpu_torch.query import compile_cache as cc
+
+        self._saved = (cc.manifest_snapshot, cc.load_manifest)
+        keep = lambda ents: [e for e in ents if e.get("fp") == self.fp]  # noqa: E731
+        cc.manifest_snapshot = lambda *a, **k: keep(self._saved[0](*a, **k))
+        cc.load_manifest = lambda *a, **k: keep(self._saved[1](*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        from kolibrie_tpu_torch.query import compile_cache as cc
+
+        cc.manifest_snapshot, cc.load_manifest = self._saved
+
+
+def mesh_serving_step(dev, mesh, lubm, tmp: str) -> dict:
+    """16d: ``attach_sharded`` on phase 4's LUBM-1000, 64 template variants
+    through ``execute_queries_batched`` against the single-device answers,
+    an INSERT DATA of 1,000 triples (a delta refresh, no new program), the
+    group again, then the same 64 variants as an HTTP burst from 16
+    threads against a durable server booted on a snapshot of that store
+    with the mesh, and its ``/stats`` and ``/metrics``."""
+    import threading
+
+    from kolibrie_tpu_torch import execute_query_volcano
+    from kolibrie_tpu_torch.durability import DurabilityManager
+    from kolibrie_tpu_torch.frontends import http_server as hs
+    from kolibrie_tpu_torch.parallel import attach_sharded, sharded_compile_stats
+    from kolibrie_tpu_torch.parallel import sharded_serving as SS
+    from kolibrie_tpu_torch.query.executor import execute_queries_batched
+
+    on_card = dev.type == "cuda"
+    out = {}
+    xbytes = SS._SHARD_XBYTES.labels().value
+    attach_errors = hs._SHARDED_ATTACH_ERRORS.labels().value
+    depts = [r[0] for r in execute_query_volcano(MESH_DEPTS, lubm)][:MESH_VARIANTS]
+    texts = [MESH_TEMPLATE.format(dept=d) for d in depts]
+    want = [execute_query_volcano(t, lubm) for t in texts]
+    sh = attach_sharded(lubm, mesh)
+    if sh is None:
+        raise AssertionError("16d: attach_sharded attached nothing")
+    _r, _l, out["refresh_ms"] = step_launches(sh.refresh)
+    got, launches, ms = step_launches(lambda: execute_queries_batched(lubm, texts))
+    st = sh.stats()
+    if got != want or st["dispatches"] < 1 or st["batched_queries"] != MESH_VARIANTS or st["fallbacks"]:
+        raise AssertionError(f"16d group: equal {got == want}, stats {st}")
+    need_kernels("d group", launches, on_card)
+    warm, _l2, warm_ms = step_launches(lambda: execute_queries_batched(lubm, texts))
+    if warm != want:
+        raise AssertionError("16d: the warm group differs from the single-device answers")
+    out["group"] = {"ms": ms, "warm_ms": warm_ms, "launches": launches,
+                    "rows": sum(len(r) for r in got), "cap_hits": st["cap_hits"],
+                    "exchanged_bytes": SS._SHARD_XBYTES.labels().value - xbytes,
+                    "busy": busy_share(dev, lambda: execute_queries_batched(lubm, texts))}
+    # a mutation batch under the delta threshold: a delta refresh, no new
+    # program surface, answers equal to the single-device run
+    sig = lubm.store.segment_signature()
+    if sig[2] + sig[3] + MESH_INSERT > lubm.store.delta_threshold:
+        raise AssertionError(f"16d: the store's delta {sig} leaves no room for the insert")
+    before, rebuilds = sharded_compile_stats(), sh.stats_counters["base_rebuilds"]
+    refreshes = sh.stats_counters["delta_refreshes"]
+    execute_query_volcano(mesh_insert(depts), lubm)
+    want2 = [execute_query_volcano(t, lubm) for t in texts]
+    got2, launches2, ms2 = step_launches(lambda: execute_queries_batched(lubm, texts))
+    st2 = sh.stats()
+    if (got2 != want2 or want2 == want or sharded_compile_stats() != before
+            or st2["base_rebuilds"] != rebuilds or st2["delta_refreshes"] <= refreshes
+            or st2["fallbacks"]):
+        raise AssertionError(f"16d after the insert: equal {got2 == want2}, compile "
+                             f"{sharded_compile_stats()} vs {before}, stats {st2}")
+    need_kernels("d after the insert", launches2, on_card)
+    out["after_insert"] = {"ms": ms2, "launches": launches2, "compile": before,
+                           "delta_refreshes": st2["delta_refreshes"]}
+    # the HTTP burst against a durable server on a snapshot of that store
+    data = os.path.join(tmp, "mesh")
+    m = DurabilityManager(data, device=dev)
+    m.start()
+    t = time.perf_counter()
+    m.snapshot({"lubm": lubm}, {})
+    m.close()
+    out["snapshot_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    with OnlyTemplate(texts[0], lubm):
+        httpd = hs.make_server("127.0.0.1", 0, quiet=True, data_dir=data, recover_async=False,
+                               device=dev, mesh=mesh)
+        out["boot_ms"] = (time.perf_counter() - t) * 1e3
+        try:
+            base = serve_in_thread(httpd)
+            out["prewarm"] = wait_prewarmed(httpd)
+            answers, lat, errors = {}, [], []
+            gate = threading.Barrier(MESH_CLIENTS)
+
+            def client(k):
+                try:
+                    gate.wait()
+                    for i in range(k, MESH_VARIANTS, MESH_CLIENTS):
+                        t0 = time.perf_counter()
+                        code, body, _ = http_json(base, "/store/query",
+                                                  {"store_id": "lubm", "sparql": texts[i]})
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                        if code != 200:
+                            raise AssertionError(f"HTTP {code}: {body}")
+                        answers[i] = body["data"]
+                except Exception as e:  # reported below, in the main thread
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(MESH_CLIENTS)]
+            _r, blaunches, burst_ms = step_launches(
+                lambda: [th.start() for th in threads] and [th.join() for th in threads])
+            if errors:
+                raise AssertionError(f"16d burst: {errors[:3]}")
+            bad = [i for i in range(MESH_VARIANTS) if answers[i] != want2[i]]
+            if bad:
+                raise AssertionError(f"16d burst: variants {bad[:5]} differ from the single-device run")
+            stats = http_json(base, "/stats")[1]["stores"]["lubm"]
+            sharding = stats.get("sharding") or {}
+            keys = {"shards", "signature", "base_cap", "delta_cap", "base_rebuilds",
+                    "delta_refreshes", "dispatches", "batched_queries", "fallbacks",
+                    "cap_hits", "last_cap_hit", "occupancy", "imbalance", "compile_surfaces"}
+            if (not keys <= set(sharding) or sharding["shards"] != MESH_SHARDS
+                    or sharding["batched_queries"] < 2 or sharding["fallbacks"]):
+                raise AssertionError(f"16d /stats sharding: {sharding}")
+            metrics = http_json(base, "/metrics")[1].decode()
+            fams = ("kolibrie_shard_dispatch_total", "kolibrie_shard_queries_total",
+                    "kolibrie_shard_rows_scanned_total", "kolibrie_shard_exchanged_bytes_total",
+                    "kolibrie_shard_h2d_bytes_total", "kolibrie_shard_imbalance",
+                    "kolibrie_shard_rows", "kolibrie_shard_exchange_cap_hits_total",
+                    "kolibrie_shard_fallback_total", "kolibrie_shard_dispatch_seconds",
+                    "kolibrie_shard_attach_errors_total", "kolibrie_store_shards",
+                    "kolibrie_store_shard_imbalance")
+            missing = [f for f in fams if f"# TYPE {f} " not in metrics]
+            if missing:
+                raise AssertionError(f"16d /metrics lacks {missing}")
+            need_kernels("d burst", blaunches, on_card)
+            out["burst"] = {"ms": burst_ms, "p50_ms": percentile(lat, 0.50),
+                            "p99_ms": percentile(lat, 0.99), "launches": blaunches,
+                            "dispatches": sharding["dispatches"],
+                            "batched_queries": sharding["batched_queries"],
+                            "occupancy": sharding["occupancy"], "imbalance": sharding["imbalance"]}
+        finally:
+            hs.shutdown_gracefully(httpd, timeout_s=10.0)
+            httpd.server_close()
+    if hs._SHARDED_ATTACH_ERRORS.labels().value != attach_errors:
+        raise AssertionError("16d: a sharded attach failed")
+    out["stats"] = sh.stats()
+    log(f"16d: {out}")
+    return out
+
+
+def run_mesh_phase(dev, main_path: dict, closure: dict) -> dict:
+    """Phase 16 (16a-16d) on phase 4's LUBM-1000 and phase 6's closure,
+    four shards over the cards present; its launches counted from just
+    before 16a to just after 16d, with no call of a kernel's plain
+    version on the card."""
+    import tempfile
+
+    from kolibrie_tpu_torch.obs import log as obslog
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.parallel import make_mesh
+    from kolibrie_tpu_torch.query import compile_cache
+
+    import torch
+
+    t0 = time.perf_counter()
+    lubm = next(db for name, db, _q, _w in main_path["queries"] if name == "q2")
+    mesh = make_mesh(MESH_SHARDS, devices=mesh_devices(dev, MESH_SHARDS))
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    log(f"phase 16: {MESH_SHARDS} shards on {[str(d) for d in mesh.devices]}, {count} card(s)")
+    captured, report = {}, {}
+    obslog.set_quiet(True)
+    undo = [recorder_install(captured), mesh_filter_recorder(captured)]
+    try:
+        with PlainCalls() as plain, tempfile.TemporaryDirectory() as tmp:
+            K.reset_launches()
+            store, report["16a"] = mesh_store_step(dev, mesh, lubm)
+            report["16b"] = mesh_query_step(dev, mesh, lubm, store, main_path)
+            del store
+            report["16c"] = mesh_closure_step(dev, mesh, lubm, closure)
+            report["16d"] = mesh_serving_step(dev, mesh, lubm, tmp)
+            total = {k: v for k, v in K.LAUNCHES.items() if v}
+            if dev.type == "cuda" and any(plain.counts.values()):
+                raise AssertionError(f"phase 16 called plain versions: {plain.counts}")
+    finally:
+        for u in undo:
+            u()
+        obslog.set_quiet(False)
+        compile_cache._active_dir = None
+        K.set_build_dir(K._BUILD)
+    need_kernels("", total, dev.type == "cuda")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 launches: {total}; {report['seconds']:.1f} s")
+    return {"report": report, "launches": total, "captured": captured}
+
+
 def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
     """One kernel row: its check against the plain version on ``args``,
     device times of the kernel, the plain version and the library call,
@@ -5160,7 +5601,7 @@ def load_parent_kernels(root: str):
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
     prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, resilience: dict, serving: dict,
-    parent=None,
+    mesh: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -5174,7 +5615,8 @@ def kernels_at_main_path_shapes(
     repeated-query runs (13a-13e) for the merge path and the lex probes,
     phase 14 (14a-14d) for the merge path, the lex probes and the RULE's
     fused filter, phase 15 (15a-15e, the requests the servers answered)
-    for the merge path and the lex probes.  The merge path's and the
+    for the merge path and the lex probes, phase 16 (16a-16d, the mesh
+    path) for the merge path and the fused filter.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -5328,6 +5770,15 @@ def kernels_at_main_path_shapes(
              K.lex_probe_validate_plain, validate_bytes, check_validate)):
         line.append(timed_row(f"{name}[serving]", csrc + src, pk + body, l15.get(name, 0),
                               vc[name][1], fn, plain, nbytes, check))
+    # phase 16: its launches (16a-16d), at the largest calls of its mesh path
+    hc, l16 = mesh["captured"], mesh["launches"]
+    line.append(timed_row("merge_path_join[mesh]", csrc + "merge_join.cu", pk + "181",
+                          l16.get("merge_path_join", 0), hc["merge_path_join"][1], K.merge_path,
+                          K.merge_path_plain, merge_path_bytes, check_merge_path))
+    fargs = hc["filter_mask"][1]
+    line.append(timed_row("filter_mask[mesh]", csrc + "filter_mask.cu", pk + "887",
+                          l16.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                          check_filter, filter_library(fargs)))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -5437,10 +5888,13 @@ def main(argv=None) -> int:
     # ---- 15. serving: the HTTP server, the router and a follower
     serving = run_serving_phase(dev, main_path)
 
+    # ---- 16. the multi-device layer: four shards over the cards present
+    mesh = run_mesh_phase(dev, main_path, closure)
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
         main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, repeated,
-        resilience, serving, parent,
+        resilience, serving, mesh, parent,
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,9 +12,11 @@ expiration-tagged closures across windows and firings.  The database
 surface (bulk load through the native parsers, checkpoints, clone / union,
 serializers, ``QueryBuilder``, the ``QueryEngine`` facade) sits around it,
 and MLP neural predicates (``torch.nn``, trained through the SDD proof path's
-WMC gradients) answer MODEL / NEURAL RELATION / TRAIN / ML.PREDICT.
-Every entry point runs on the CUDA card unless the caller passes
-``device="cpu"``.
+WMC gradients) answer MODEL / NEURAL RELATION / TRAIN / ML.PREDICT.  The
+multi-device layer (``kolibrie_tpu_torch.parallel``) shards the store over
+a mesh of devices and runs joins, fixpoints, SELECT plans and batched
+serving over it.  Every entry point runs on the CUDA card unless the
+caller passes ``device="cpu"``.
 
     from kolibrie_tpu_torch import SparqlDatabase, execute_query_volcano
     db = SparqlDatabase(device="cpu")
@@ -38,6 +40,9 @@ Every entry point runs on the CUDA card unless the caller passes
     db.load_file("data.nt"); db.to_turtle(); db.query().with_predicate(...).get_decoded_triples()
     execute_query_volcano('MODEL "m" { ... } NEURAL RELATION ... TRAIN NEURAL RELATION ...', db)
     execute_query_volcano('ML.PREDICT(MODEL "m", INPUT { SELECT ... }, OUTPUT ?y)', db)
+
+    from kolibrie_tpu_torch.parallel import attach_sharded, make_mesh
+    attach_sharded(db, make_mesh(8, devices=["cpu"] * 8))  # batched groups on the mesh
 """
 
 from kolibrie_tpu_torch.core.dictionary import Dictionary

@@ -4,8 +4,9 @@ Port of ``kolibrie_tpu/frontends/http_server.py``.  The server serves on an
 explicit device: every database, RSP engine and follower store it builds
 lives on ``make_server(device=...)`` — the CUDA card unless the caller
 passes another (no card and no device: it raises).  ``/debug/profile``
-captures with ``torch.profiler``.  The reference's ``KOLIBRIE_SHARDED``
-mesh attach is not ported: with it set, :func:`make_server` raises.
+captures with ``torch.profiler``.  ``KOLIBRIE_SHARDED`` (or an explicit
+``make_server(mesh=...)``) attaches the mesh serving layer to every
+persistent store (``parallel/sharded_serving.py``).
 
 Parity: ``kolibrie-http-server/src/main.rs`` — routes (:593-624), request/
 response JSON shapes (:55-158), results table with first-seen header order
@@ -78,12 +79,13 @@ SSE_SUBSCRIBER_QUEUE_MAX = int(
 )
 
 
-def _sharded_requested() -> bool:
-    """``KOLIBRIE_SHARDED`` asks for the reference's mesh serving, which the
-    port does not have yet."""
-    return os.environ.get("KOLIBRIE_SHARDED", "").strip().lower() not in (
-        "", "0", "off", "false",
-    )
+# Opt-in mesh serving: persistent stores attach a ShardedDatabase so
+# batched same-template groups run as one mesh dispatch.  Without an
+# explicit mesh it needs two or more cards; otherwise the store stays
+# single-device (the degraded path).
+SHARDED_SERVING = os.environ.get("KOLIBRIE_SHARDED", "").strip().lower() not in (
+    "", "0", "off", "false",
+)
 
 # ------------------------------------------------------- serving metrics
 # (docs/OBSERVABILITY.md has the full catalog)
@@ -153,6 +155,11 @@ _BATCH_DISPATCH_LAT = obs_metrics.histogram(
     "batch dispatch wall time by template fingerprint",
     labels=("template",),
 )
+_SHARDED_ATTACH_ERRORS = obs_metrics.counter(
+    "kolibrie_shard_attach_errors_total",
+    "sharded-serving attach/refresh attempts that failed (store keeps "
+    "serving single-device — the degraded path)",
+)
 _READS_SHED_CATCHING_UP = obs_metrics.counter(
     "kolibrie_reads_shed_catching_up_total",
     "reads refused because this follower was behind the client's "
@@ -208,6 +215,24 @@ def _parsed_term_to_str(term) -> str:
             f"{_parsed_term_to_str(o)} >>"
         )
     return term
+
+
+def _maybe_attach_sharded(db, mesh=None) -> None:
+    """Attach (or refresh) the mesh serving layer for one store when
+    KOLIBRIE_SHARDED is on or the server was given a ``mesh``.  Never
+    fails the surrounding request: a one-device runtime, or an
+    attach/refresh fault, leaves the store serving on the single-device
+    path (that IS the degraded mode)."""
+    if not SHARDED_SERVING and mesh is None:
+        return
+    try:
+        from kolibrie_tpu_torch.parallel.sharded_serving import attach_sharded
+
+        sh = attach_sharded(db, mesh)
+        if sh is not None:
+            sh.refresh()
+    except Exception:
+        _SHARDED_ATTACH_ERRORS.inc()
 
 
 def _load_rdf_into(db, data: str, fmt: str) -> int:
@@ -513,9 +538,13 @@ class _ServerState:
         data_dir: Optional[str] = None,
         role: str = "primary",
         device: DeviceLike = None,
+        mesh=None,
     ):
         #: where every database, RSP engine and follower store lives
         self.device = resolve_device(device)
+        #: the shard mesh persistent stores attach to (None: only with
+        #: KOLIBRIE_SHARDED, over every card)
+        self.mesh = mesh
         self.sessions: Dict[str, EngineSession] = {}  # guarded by: lock
         self.stores: Dict[str, TemplateBatcher] = {}  # guarded by: lock
         self.lock = threading.Lock()
@@ -604,6 +633,12 @@ def _recover_server_state_traced(state: _ServerState) -> None:
     failures: Dict[str, str] = {}
     max_id = 0
     try:
+        # recovered stores come back mesh-attached: snapshot restore + WAL
+        # replay rebuild the host store, then this hook rebuilds the
+        # device-resident sharded mirrors before the store starts serving
+        state.durability.on_store_recovered = (
+            lambda _sid, db: _maybe_attach_sharded(db, state.mesh)
+        )
         result = state.durability.recover()
         batchers: Dict[str, TemplateBatcher] = {}
         for sid, db in result.stores.items():
@@ -708,6 +743,7 @@ def _make_follower(
             # the dispatch lock so in-flight queries finish on the old db
             with b.dispatch_lock:
                 b.db = db
+        _maybe_attach_sharded(db, state.mesh)
 
     follower = ReplicationFollower(
         data_dir,
@@ -1176,6 +1212,9 @@ class KolibrieHandler(BaseHTTPRequestHandler):
                 n = _load_rdf_into(
                     batcher.db, req.get("rdf") or "", req.get("format", "ntriples")
                 )
+                # eager mirror upload while the lock is held: the first
+                # query after a load pays dispatch, not partitioning
+                _maybe_attach_sharded(batcher.db, state.mesh)
         except Exception as e:
             raise BadRequest(f"RDF parse error: {e}") from e
         _maybe_snapshot(state)
@@ -1795,6 +1834,7 @@ def make_server(
     repl_poll_interval_s: float = 0.15,
     repl_seal_interval_s: float = 0.25,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Build the HTTP server, serving on ``device`` (the CUDA card unless
     the caller passes another; no card and no device: it raises).
@@ -1811,15 +1851,13 @@ def make_server(
     node as a read-only follower of that primary instead — ``data_dir``
     is then the follower's own mirror directory.
 
-    ``KOLIBRIE_SHARDED`` (the reference's mesh serving) raises: the port
-    serves on one device until ROADMAP A11 brings the mesh."""
-    if _sharded_requested():
-        raise RuntimeError(
-            "KOLIBRIE_SHARDED: mesh serving is not ported yet (ROADMAP A11); "
-            "unset it to serve on one device"
-        )
+    Mesh serving: with ``mesh`` (a ``parallel.mesh.Mesh``) every
+    persistent store attaches a ``ShardedDatabase`` over it, so batched
+    same-template groups run as one mesh dispatch; ``KOLIBRIE_SHARDED``
+    does the same over every card, and on a one-device runtime attaches
+    nothing."""
     role = "follower" if repl_source else "primary"
-    state = _ServerState(data_dir=data_dir, role=role, device=device)
+    state = _ServerState(data_dir=data_dir, role=role, device=device, mesh=mesh)
     state.repl_port = repl_port
     state.repl_seal_interval_s = repl_seal_interval_s
     handler = type(

@@ -2,8 +2,10 @@
 single source of truth behind ``GET /stats``.
 
 Port of ``kolibrie_tpu/obs/export.py``, with the same JSON shapes and
-metric families less the mesh-serving ones (``sharding``,
-``kolibrie_store_shard*``), which wait for the port's multi-device layer.
+metric families, the mesh-serving ones included: a store with the sharded
+serving layer attached (``parallel/sharded_serving.py``) carries a
+``sharding`` block in ``/stats`` and the ``kolibrie_store_shards`` /
+``kolibrie_store_shard_imbalance`` gauges in ``/metrics``.
 
 Before this module existed the server had two stats code paths —
 ``TemplateBatcher.stats()`` poked the compile cache, plan cache and
@@ -84,6 +86,11 @@ def store_stats(batcher) -> dict:
         out["triples"] = len(batcher.db.store)
         out["plan_cache"] = plan_cache_info(batcher.db)
         out["breakers"] = breaker_board(batcher.db).snapshot()
+        sharded = batcher.db.__dict__.get("_sharded_serving")
+        if sharded is not None:
+            # shard count, per-shard occupancy, imbalance, last cap hit —
+            # the degraded-routing signals
+            out["sharding"] = sharded.stats()
     out["device_compiles"] = device_compile_stats()
     from kolibrie_tpu_torch.optimizer import mqo
 
@@ -189,6 +196,16 @@ _queue_depth_gauge = metrics.gauge(
 _rsp_sessions_gauge = metrics.gauge(
     "kolibrie_rsp_sessions", "live RSP sessions"
 )
+_store_shards_gauge = metrics.gauge(
+    "kolibrie_store_shards",
+    "mesh shard count serving a store (0 rows absent = single-device)",
+    labels=("store",),
+)
+_store_shard_imbalance_gauge = metrics.gauge(
+    "kolibrie_store_shard_imbalance",
+    "per-store max/mean shard row occupancy",
+    labels=("store",),
+)
 _plan_cache_gauges = {
     "parse_entries": metrics.gauge(
         "kolibrie_plan_cache_parse_entries",
@@ -215,6 +232,12 @@ def refresh_server_gauges(state) -> None:
         info = plan_cache_info(b.db)
         for key, g in _plan_cache_gauges.items():
             g.labels(sid).set(info[key])
+        sharded = b.db.__dict__.get("_sharded_serving")
+        if sharded is not None:
+            sh_stats = sharded.stats()
+            _store_shards_gauge.labels(sid).set(sh_stats["shards"])
+            if "imbalance" in sh_stats:
+                _store_shard_imbalance_gauge.labels(sid).set(sh_stats["imbalance"])
     # follower watermark/lag SLO gauges refresh at scrape time so a
     # wedged poll loop cannot freeze the lag /metrics reports — the
     # follower owns the gauge families; primaries (ShipServer) have no

@@ -3012,22 +3012,28 @@ def device_string_ranks(db):
     return arrs
 
 
-def _order_limit(cols, valid, numf, opos, descs, k: int, dranks=None, qranks=None):
+def _order_limit(
+    cols, valid, numf, opos, descs, k: int, dranks=None, qranks=None, nan_overrides=None
+):
     """ORDER BY + LIMIT on the device: sort keys gathered from the per-ID
     numeric table, or, when a key column holds ANY non-numeric valid value
     (the host ``_order_table`` per-column rule), from the global string
     ranks (two-level for quoted IDs); composed as stable argsorts, first
     ``k`` rows.  Returns ``(sliced cols, sliced valid, n_valid,
     nan_seen)``: run without ranks first, and a true ``nan_seen`` means
-    run again with them."""
+    run again with them.  On a mesh the per-key decision must be GLOBAL:
+    the caller passes ``nan_overrides``, one psum'd bool per key."""
     n = valid.shape[0]
     perm = torch.arange(n, device=valid.device)
     nan_seen = torch.zeros((), dtype=torch.bool, device=valid.device)
     keys = []
-    for pos, desc in zip(opos, descs):
+    for i, (pos, desc) in enumerate(zip(opos, descs)):
         col = cols[pos]
         vals = numf[col.clamp(max=numf.shape[0] - 1)]
-        col_nan = (torch.isnan(vals) & valid).any()
+        if nan_overrides is not None:
+            col_nan = nan_overrides[i]
+        else:
+            col_nan = (torch.isnan(vals) & valid).any()
         nan_seen = nan_seen | col_nan
         if dranks is not None:
             isq = (col & QUOTED_BIT) != 0

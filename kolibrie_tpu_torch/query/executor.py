@@ -1061,8 +1061,17 @@ def _plan_cache_entry(db, sparql: str):
         _PLAN_CACHE_EVICTION.inc()
     version = db.store.base_version
     # the execution mode joins the state key: a degraded call (mode "host"
-    # for that call) keeps its own warm host slot beside the device one
-    state = (version, db.__dict__.get("_udf_version", 0), db.execution_mode)
+    # for that call) keeps its own warm host slot beside the device one;
+    # so does the mesh signature: attaching/detaching the sharded serving
+    # layer (or resizing its mesh) never replays a plan lowered for the
+    # other topology
+    _sh = db.__dict__.get("_sharded_serving")
+    state = (
+        version,
+        db.__dict__.get("_udf_version", 0),
+        db.execution_mode,
+        None if _sh is None else _sh.signature,
+    )
     slot = tent["by_state"].get(state)
     if slot is not None and slot["lowered"] is False:
         # sticky-failure expiry: a ``False`` sentinel from a TRANSIENT
@@ -1297,7 +1306,8 @@ def execute_queries_batched(db, queries: List[str]) -> List[Rows]:
     groups: Dict[str, List[int]] = {}
     members: List[Optional[tuple]] = [None] * len(queries)
     board = breaker_board(db)
-    if _device_routed(db):
+    sharded = db.__dict__.get("_sharded_serving")
+    if _device_routed(db) or sharded is not None:
         for i, text in enumerate(queries):
             ent, slot = _plan_cache_entry(db, text)
             if slot["lowered"] is False:
@@ -1320,6 +1330,37 @@ def execute_queries_batched(db, queries: List[str]) -> List[Rows]:
             continue
         set_baggage("template", fp)
         _sa_set_current_fp(fp)
+        if sharded is not None:
+            # mesh-first: the whole template group rides one mesh dispatch
+            # (parallel/sharded_serving.py); on Unsupported or a device
+            # fault the group degrades to the single-device paths below,
+            # the breaker counting mesh trips
+            from kolibrie_tpu_torch.parallel.sharded_serving import (
+                Unsupported as _MeshUnsupported,
+            )
+
+            try:
+                with span("executor.sharded", template=fp, batch=len(idxs)):
+                    got = sharded.execute_batch(fp, [(i, queries[i]) for i in idxs])
+            except _MeshUnsupported:
+                pass  # the group's shape stays single-device: fall through
+            except DeadlineExceeded:
+                board.record_failure(fp)
+                raise
+            except Exception as e:
+                if not is_device_fault(e):
+                    raise
+                board.record_failure(fp)
+            else:
+                board.record_success(fp)
+                stats["batched"] += len(idxs)
+                stats["batch_groups"] += 1
+                _BATCHED_QUERIES.inc(len(idxs))
+                for i in idxs:
+                    results[i] = got[i]
+                continue
+        if not _device_routed(db):
+            continue  # the mesh declined and no single-device routing
         lowereds = []
         try:
             for i in idxs:

@@ -83,12 +83,19 @@ def warm_one(db, query: str, lock: Optional[threading.Lock] = None) -> dict:
                 rows = execute_query_volcano(query, db)
         else:
             rows = execute_query_volcano(query, db)
+        # mesh-attached store: the serving path dispatches template groups
+        # through the mesh — warm that path too
+        sharded = db.__dict__.get("_sharded_serving")
+        mesh_warmed = sharded.warm(query) if sharded is not None else None
         ms = (time.perf_counter() - t0) * 1000.0
         # source of the run this warm produced (interp is impossible
         # here — routing was forced off)
         fp, _ = fingerprint_query(parse_combined_query(query, db.prefixes))
     per = plan_cache_info(db)["per_template"].get(fp, {})
-    return {"ms": round(ms, 3), "source": per.get("source"), "rows": len(rows)}
+    out = {"ms": round(ms, 3), "source": per.get("source"), "rows": len(rows)}
+    if mesh_warmed is not None:
+        out["mesh"] = mesh_warmed
+    return out
 
 
 def _read_only(cq) -> bool:

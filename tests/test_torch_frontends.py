@@ -216,48 +216,117 @@ def test_debug_and_admin_routes_match_reference(servers):
             rb if path == "/" else masked(json.loads(rb)))
 
 
-def test_stats_keys_and_metric_families_match_reference(servers):
+def test_stats_keys_and_metric_families_match_reference(servers, mesh8, monkeypatch):
     ref, port = servers
     both(servers, "/store/load", {"store_id": "st", "rdf": STORE_NT})
     both(servers, "/store/query", {"store_id": "st",
                                    "sparql": "SELECT ?s ?o WHERE { ?s <http://e/v> ?o }"})
     stats = [json.loads(get(b, "/stats")[1]) for b in (ref, port)]
     assert key_shape(stats[1]) == key_shape(stats[0])
-    # the reference's mesh-serving families wait for the port's
-    # multi-device layer; other test modules in this process may have
-    # imported more of either package, so both sides import their
-    # counterparts of what the other has loaded first
-    import importlib
-    import sys
+    # a store with the mesh serving layer: the reference attaches on its 8
+    # devices under KOLIBRIE_SHARDED, the port to an 8-shard CPU mesh
+    # given to its server
+    import torch
 
-    for name in list(sys.modules):
-        if name.startswith("kolibrie_tpu.") and not name.startswith("kolibrie_tpu.parallel"):
-            try:
-                importlib.import_module("kolibrie_tpu_torch" + name[len("kolibrie_tpu"):])
-            except ImportError:
-                pass
-    for name in list(sys.modules):
-        if name.startswith("kolibrie_tpu_torch."):
-            try:
-                importlib.import_module("kolibrie_tpu" + name[len("kolibrie_tpu_torch"):])
-            except ImportError:
-                pass
-    ref_fams, port_fams = (prom_families(get(b, "/metrics")[1].decode()) for b in (ref, port))
-    mesh = {f for f in ref_fams if f.startswith(("kolibrie_shard_", "kolibrie_store_shard"))}
-    assert port_fams == ref_fams - mesh
-    assert "kolibrie_http_requests_total" in port_fams
+    from kolibrie_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(ref_hs, "SHARDED_SERVING", True)
+    meshed = port_hs.make_server("127.0.0.1", 0, quiet=True, device="cpu",
+                                 mesh=make_mesh(8, devices=[torch.device("cpu")] * 8))
+    try:
+        pair = (ref, start(meshed))
+        for b in pair:
+            post(b, "/store/load", {"store_id": "sh", "rdf": STORE_NT, "mode": "host"})
+        stats = [json.loads(get(b, "/stats")[1])["stores"]["sh"] for b in pair]
+        assert "sharding" in stats[0]
+        assert key_shape(stats[1]) == key_shape(stats[0])
+        for key in ("shards", "signature", "base_cap", "delta_cap", "occupancy", "imbalance",
+                    "base_rebuilds", "delta_refreshes"):
+            assert stats[1]["sharding"][key] == stats[0]["sharding"][key], key
+        # other test modules in this process may have imported more of
+        # either package, so both sides import their counterparts of what
+        # the other has loaded first
+        import importlib
+        import sys
+
+        for name in list(sys.modules):
+            if name.startswith("kolibrie_tpu."):
+                try:
+                    importlib.import_module("kolibrie_tpu_torch" + name[len("kolibrie_tpu"):])
+                except ImportError:
+                    pass
+        for name in list(sys.modules):
+            if name.startswith("kolibrie_tpu_torch."):
+                try:
+                    importlib.import_module("kolibrie_tpu" + name[len("kolibrie_tpu_torch"):])
+                except ImportError:
+                    pass
+        ref_fams, port_fams = (prom_families(get(b, "/metrics")[1].decode()) for b in pair)
+        assert port_fams == ref_fams
+        mesh = {f for f in ref_fams if f.startswith(("kolibrie_shard_", "kolibrie_store_shard"))}
+        assert {"kolibrie_shard_dispatch_total", "kolibrie_shard_attach_errors_total",
+                "kolibrie_store_shards", "kolibrie_store_shard_imbalance"} <= mesh
+        assert "kolibrie_http_requests_total" in port_fams
+    finally:
+        meshed.shutdown()
 
 
 def test_make_server_needs_a_device_and_refuses_sharded(monkeypatch):
+    """No card and no device: it raises.  ``KOLIBRIE_SHARDED`` on a
+    ``device="cpu"`` server is a one-device runtime, so the store stays
+    single-device, as the reference's does on one device."""
     with pytest.raises(RuntimeError, match="CUDA"):
         port_hs.make_server("127.0.0.1", 0, quiet=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_hs.serve("127.0.0.1", 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_cli(["--serve", "--port", "0"])
-    monkeypatch.setenv("KOLIBRIE_SHARDED", "1")
-    with pytest.raises(RuntimeError, match="A11"):
-        port_hs.make_server("127.0.0.1", 0, quiet=True, device="cpu")
+    monkeypatch.setattr(port_hs, "SHARDED_SERVING", True)
+    httpd = port_hs.make_server("127.0.0.1", 0, quiet=True, device="cpu")
+    base = start(httpd)
+    try:
+        st, body, _ = post(base, "/store/load", {"store_id": "one", "rdf": STORE_NT})
+        assert st == 200
+        stats = json.loads(get(base, "/stats")[1])["stores"]["one"]
+        assert "sharding" not in stats
+        got = post(base, "/store/query", {"store_id": "one",
+                                          "sparql": "SELECT ?s ?o WHERE { ?s <http://e/v> ?o }"})
+        assert got[0] == 200 and len(got[1]["data"]) == 40
+    finally:
+        httpd.shutdown()
+
+
+def test_make_server_with_a_mesh_serves_sharded():
+    """A mesh given to the server attaches the sharded serving layer to
+    every store it holds: a template group rides one mesh dispatch and
+    answers as the single-device path does."""
+    import threading
+
+    import torch
+
+    from kolibrie_tpu_torch.parallel import make_mesh
+
+    httpd = port_hs.make_server("127.0.0.1", 0, quiet=True, device="cpu",
+                                mesh=make_mesh(4, devices=[torch.device("cpu")] * 4))
+    base = start(httpd)
+    try:
+        post(base, "/store/load", {"store_id": "m", "rdf": STORE_NT, "mode": "device"})
+        texts = [f"SELECT ?o WHERE {{ <http://e/n{i}> <http://e/p> ?o }}" for i in range(8)]
+        answers = {}
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, post(base, "/store/query", {"store_id": "m", "sparql": texts[i]})[1]))
+            for i in range(len(texts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for i in range(len(texts)):
+            assert answers[i]["data"] == [[f"http://e/n{i + 1}"]]
+        sharding = json.loads(get(base, "/stats")[1])["stores"]["m"]["sharding"]
+        assert sharding["shards"] == 4 and sum(sharding["occupancy"]) == 80
+        assert sharding["fallbacks"] == 0
+    finally:
+        httpd.shutdown()
 
 
 def cli_pair(tmp_path, capsys, args):
