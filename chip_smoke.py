@@ -69,7 +69,7 @@ result line):
 7. RSP — the single-window R2R shape of ``benches/bench_rsp_engine.py``
             at a 120,000-triple window: ``RSPBuilder(RSP_QUERY)
             .add_rules(RSP_RULES).set_r2r_mode("device")`` on the card over
-            360 ticks of 1,000 ``knows`` events among 40,000 persons (rule
+            240 ticks of 1,000 ``knows`` events among 40,000 persons (rule
             ``knows o knows => reach``, about 360,000 derived a firing; the
             query joins ``reach`` and ``knows`` on two keys).  The same
             stream through ``set_r2r_mode("host")`` is the oracle: rows and
@@ -77,7 +77,7 @@ result line):
             still queries on the card, so the stream's first
             ``RSP_CPU_TICKS`` ticks also go through the port's CPU run
             (``device="cpu"``, host closure), whose firings the card's must
-            equal too.  At least five
+            equal too.  At least three
             full-width firings, the device route kept (``_device_ok``), no
             dead letters, and every warm firing launching ``filter_mask``
             and the merge path twice.  Per firing: maintenance, fixpoint
@@ -138,10 +138,10 @@ result line):
             ``[RANGE 60 STEP 10]`` and a parking window ``[RANGE 120 STEP
             10]``, the same join rule (its conclusion in the traffic
             window, which the query reads), 834 ``avgSpeed`` readings and
-            105 lots a tick over ticks 1-240 (about 50,000 and 25,000 window
+            105 lots a tick over ticks 1-180 (about 50,000 and 25,000 window
             triples): modes naive, incremental and auto emit the same rows
             every cycle, the first three full-width cycles equal the CPU's
-            naive run, and an incremental engine checkpointed after tick 180
+            naive run, and an incremental engine checkpointed after tick 140
             and restored into a fresh engine (given the first one's terms:
             the blob holds dictionary IDs, as the reference's does)
             continues with the uninterrupted rows.  10c: phase 7's stream
@@ -284,8 +284,28 @@ result line):
             ``/metrics``).  Every step launches the merge path and the fused
             filter and no plain version; no attach error, no fallback.
             Counters zeroed just before 16a, read after 16d.
+17. distributed provenance and training — phase 16's four shards.  17a:
+            ``DistProvenanceReasoner`` on phase 9a's graph under
+            Expiration, MinMax and AddMult, cold then warm: both runs'
+            facts and TagStore equal 9a's single-device run (AddMult within 1e-9 a
+            tag), AddMult's two runs bit-identical; walls, rounds, capacity
+            attempts, peak memory.  17b: the reference tests' NAF programs
+            (and one whose NAF body joins) equal to the port's host loop;
+            the refused shapes raise ``Unsupported``.  17c:
+            ``dp_train_step`` over 12c's 100,000 digit samples, each of 20
+            losses and the last params, m and v within 1e-5 of the
+            one-device step, the loss falling; then
+            ``neurosymbolic_step`` on phase 16a's partition of LUBM-1000
+            with the transitive ``subOrganizationOf`` rule (0 derived: the
+            generator has no 2-hop chain) and phase 6's ``memberOf`` lift
+            (640,000), each count equal to numpy's.  Every dispatch of 17a
+            and 17b launches the fused filter on every shard, and the merge
+            path wherever its rules join (17c's fast-path rounds launch the
+            merge path and no filter: they compare predicates inline, as
+            the reference's do); no plain version is called.  Counters
+            zeroed just before 17a, read after 17c.
 5. kernels (main-path shapes) — each kernel against its plain version on
-            the largest inputs its path gave it (phases 4, 6, 6c, 7-16), both
+            the largest inputs its path gave it (phases 4, 6, 6c, 7-17), both
             timed on the device, and the bound: the bytes the function needs
             at 3.35 TB/s; ``filter_mask`` beside ``torch.eq`` for its
             predicate-only shapes; the ``-Xptxas -v`` registers, shared
@@ -398,10 +418,11 @@ SINCE_YEARS = 20  # "<year>" literals of the advisor annotations
 # ---- phase 7: RSP (the single-window R2R shape of benches/bench_rsp_engine.py:96-145)
 RSP_PERSONS = 40_000
 RSP_EVENTS_PER_TICK = 1_000
-RSP_TICKS = 360  # ticks 1 .. 360: firings at 60, 120, ..., 360
+# 240 ticks, not more: the whole smoke must stay inside its time limit
+RSP_TICKS = 240  # ticks 1 .. 240: firings at 60, 120, 180, 240
 RSP_WIDTH = 120  # [RANGE 120 STEP 60]: a full window holds 120 ticks of events
 RSP_SEED = 7
-RSP_FULL_FIRINGS = 5
+RSP_FULL_FIRINGS = 3
 RSP_CPU_TICKS = 180  # the CPU oracle's prefix: firings at 60, 120, 180 (two at full width)
 RSP_STREAM = "http://city/social"
 RSP_QUERY = """PREFIX s: <http://city/>
@@ -2319,9 +2340,12 @@ def run_prov_closures(dev, work: dict, captured: dict) -> dict:
         floor = {k: n * len(warm["dispatches"]) for k, n in PROV_LAUNCHES.items()}
         if any(warm["launches"].get(k, 0) < n for k, n in floor.items()):
             raise AssertionError(f"9a {name} warm launches {warm['launches']}, floor {floor}")
+        # phase 17a holds the mesh's closure to this run's
+        result = {"derived": warm["derived"], "facts": sorted_facts(warm["facts"]),
+                  "tags": warm["tags"]}
         for rec in runs.values():
             del rec["tags"], rec["facts"]
-        out[name] = {**runs, "host_ms": host_ms, "max_tag_err": err}
+        out[name] = {**runs, "host_ms": host_ms, "max_tag_err": err, "result": result}
         log(f"9a {name}: facts and TagStore equal the host loop ({host_ms:.1f} ms; largest tag "
             f"difference {err}){'; two device runs bit-identical' if name == 'addmult' else ''}")
     return out
@@ -2562,8 +2586,9 @@ def run_prov_phase(dev, lubm, universities: int) -> dict:
     log(f"phase 9: 9a {t1 - t0:.1f} s, 9b card {t2 - t1:.1f} s, 9b CPU twin {t3 - t2:.1f} s, "
         f"9c {time.perf_counter() - t3:.1f} s; SDD manager {type(make_sdd_manager()).__name__}; "
         f"warm-run launches {launches}")
+    results = {name: rec.pop("result") for name, rec in closures.items()}
     return {"closures": closures, "rules": card, "twin": twin, "small": small,
-            "launches": launches, "captured": captured}
+            "launches": launches, "captured": captured, "results": results}
 
 
 # --------------------------------------- cross-window SDS+ and incremental R2R
@@ -2585,11 +2610,11 @@ CW_RULE = """@prefix wt: <http://traffic/> .
 CW_LAUNCHES = {"filter_mask": 3, "merge_path_join": 2}
 # 10b: the same join rule on the engine, its conclusion routed into the
 # traffic window so that the window query reads what it derived
-CW_TICKS = 240
+CW_TICKS = 180  # not more: the whole smoke must stay inside its time limit
 CW_SPEED_PER_TICK = 834  # ~50,000 avgSpeed triples in a 60-tick window
 CW_LOTS_PER_TICK = 105  # 2 triples each: ~25,000 in a 120-tick window
 CW_LOTS = CW_ROADS // 4
-CW_CHECKPOINT_TICK = 180
+CW_CHECKPOINT_TICK = 140
 CW_CPU_FIRINGS = 3  # the CPU run's full-width firings
 CW_SEED = 11
 CW_MODES = ("naive", "incremental", "auto")
@@ -3195,15 +3220,21 @@ ML_ALARM_RULE = ("PREFIX ex: <http://e/>\nRULE :alarm :- CONSTRUCT { ?m ex:alarm
 ML_ALARMS = ('PREFIX ex: <http://e/> SELECT (COUNT(?m) AS ?n) WHERE { ?m ex:alarm "on" }')
 
 
-def ml_digit_ntriples(n: int, seed: int) -> str:
-    """``tests/test_ml.py``'s digit graph at ``n`` samples: class 0 near
-    (0.1, 0.9), class 1 near (0.9, 0.1), sigma 0.05, four decimals."""
+def ml_digit_draw(n: int, seed: int) -> tuple:
+    """``tests/test_ml.py``'s digit samples at ``n``: class 0 near
+    (0.1, 0.9), class 1 near (0.9, 0.1), sigma 0.05, as ``(x0, x1, label)``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     label = np.arange(n) % 2
     x0 = np.where(label == 0, 0.1, 0.9) + rng.normal(0, 0.05, n)
     x1 = np.where(label == 0, 0.9, 0.1) + rng.normal(0, 0.05, n)
+    return x0, x1, label
+
+
+def ml_digit_ntriples(n: int, seed: int) -> str:
+    """``ml_digit_draw``'s samples as N-Triples, four decimals."""
+    x0, x1, label = ml_digit_draw(n, seed)
     return "".join(
         f'<{ML_NS}s{i}> <{ML_NS}x0> "{a:.4f}" .\n<{ML_NS}s{i}> <{ML_NS}x1> "{b:.4f}" .\n'
         f'<{ML_NS}s{i}> <{ML_NS}label> "{c}" .\n'
@@ -4797,11 +4828,18 @@ def serve_observability(dev, base: str, tmp: str) -> dict:
     r = store_query(base, "emp", q, None, "15c traced", {"X-Kolibrie-Trace-Id": "phase15-trace"})
     if r["headers"].get("X-Kolibrie-Trace-Id") != "phase15-trace":
         raise AssertionError(f"15c: trace id not echoed: {r['headers']}")
-    st, body, _ = http_json(base, "/debug/traces?trace_id=phase15-trace")
-    recs = [json.loads(ln) for ln in body.decode().splitlines() if ln]
-    names = {rec["name"] for rec in recs}
     chain = {"http.request", "batcher.submit", "batcher.dispatch", "query.execute",
              "query.parse", "query.plan", "device.lower", "device.dispatch", "device.collect"}
+    # the handler closes its http.request span after it has written the
+    # response, so a trace read at once may still lack it
+    deadline = time.monotonic() + 10.0
+    while True:
+        st, body, _ = http_json(base, "/debug/traces?trace_id=phase15-trace")
+        recs = [json.loads(ln) for ln in body.decode().splitlines() if ln]
+        names = {rec["name"] for rec in recs}
+        if chain <= names or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
     if not chain <= names or any(rec["trace_id"] != "phase15-trace" for rec in recs):
         raise AssertionError(f"15c: trace holds {sorted(names)}")
     out["trace_spans"] = len(recs)
@@ -5504,6 +5542,370 @@ def run_mesh_phase(dev, main_path: dict, closure: dict) -> dict:
     return {"report": report, "launches": total, "captured": captured}
 
 
+# ------------------- phase 17: distributed provenance and the training steps
+
+TRAIN_STEPS = 20  # 17c: dp_train_step steps over ML_SAMPLES digit samples
+TRAIN_LR = 0.05  # 12c's TRAIN learning rate
+TRAIN_TOL = 1e-5  # 17c: each step's loss, and the last state, against the one-device step's
+# 17b: the NAF programs of tests/test_dist_provenance.py (and one NAF rule
+# whose body joins), against the port's host loop
+NAF_PROGRAMS = ("naf_minmax", "naf_boolean_feeds_positive", "naf_addmult",
+                "naf_addmult_across_passes", "cross_blocking_boolean",
+                "cross_blocking_minmax", "naf_join_minmax")
+NAF_REFUSED = ("self_blocking", "order_sensitive", "structural")
+
+
+def sorted_facts(cols) -> tuple:
+    """Fact columns in lexicographic (s, p, o) order."""
+    import numpy as np
+
+    order = np.lexsort((cols[2], cols[1], cols[0]))
+    return tuple(np.asarray(c)[order] for c in cols)
+
+
+def need_dispatch_launches(label: str, launches: dict, floor: dict, on_card: bool) -> None:
+    """On the card: at least ``floor`` launches of each kernel."""
+    if on_card and any(launches.get(k, 0) < n for k, n in floor.items()):
+        raise AssertionError(f"{label}: launches {launches}, floor {floor}")
+
+
+def prov_mesh_step(dev, mesh, work: dict, results: dict) -> dict:
+    """17a: ``DistProvenanceReasoner`` on phase 9a's graph under each
+    semiring, cold then warm on fresh reasoners; each run's facts and
+    TagStore equal 9a's device-route results, AddMult's two runs are
+    bit-identical, and every dispatch launches the merge path and the fused
+    filter on every shard (9a's per-dispatch counts, once a shard)."""
+    import numpy as np
+    import torch
+
+    from kolibrie_tpu_torch.parallel import DistProvenanceReasoner
+
+    on_card = dev.type == "cuda"
+    out = {}
+    for name in PROV_SEMIRINGS:
+        runs = {}
+        for label in ("cold", "warm"):
+            r, cols = prov_reasoner(dev, work)
+            prov, store = prov_tag_store(name, cols, work)
+            n0 = len(r.facts)
+            resident = None
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+            dr = DistProvenanceReasoner(mesh, r, prov, store)
+            derived, launches, ms = step_launches(dr.infer)
+            rec = runs[label] = {
+                "derived": derived, "ms": ms, "dispatches": dr.dispatches, "rounds": dr.rounds,
+                "attempts": dr.attempts,
+                "caps": [dr.fact_cap, dr.delta_cap, dr.join_cap, dr.bucket_cap],
+                "launches": launches, "resident_bytes": resident,
+                "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+                "tags": dict(store.tags), "facts": sorted_facts(r.facts.columns()),
+            }
+            log(f"17a {name} {label}: {n0} facts, {derived} derived, {ms:.1f} ms, "
+                f"{dr.rounds} rounds of {dr.dispatches} dispatches, {dr.attempts} capacity "
+                f"attempts, caps {rec['caps']}, peak device memory {rec['peak_bytes']} B "
+                f"({resident} B resident before), launches {launches}")
+            floor = {k: n * mesh.size * dr.dispatches for k, n in PROV_LAUNCHES.items()}
+            need_dispatch_launches(f"17a {name} {label}", launches, floor, on_card)
+        want, err = results[name], 0.0
+        for label, rec in runs.items():
+            if rec["derived"] != want["derived"] or not all(
+                    np.array_equal(a, b) for a, b in zip(rec["facts"], want["facts"])):
+                raise AssertionError(f"17a {name} {label}: {rec['derived']} derived; the facts "
+                                     f"differ from 9a's ({want['derived']})")
+            err = max(err, same_tags(want["tags"], rec["tags"], name == "addmult"))
+        cold, warm = runs["cold"], runs["warm"]
+        if name == "addmult" and (cold["tags"] != warm["tags"] or any(
+                cold[k] != warm[k] for k in ("dispatches", "rounds", "caps"))):
+            raise AssertionError("17a addmult: two mesh runs differ")
+        for rec in runs.values():
+            del rec["tags"], rec["facts"]
+        out[name] = {**runs, "max_tag_err": err}
+        log(f"17a {name}: both runs' facts and TagStore equal 9a's single-device run (largest tag "
+            f"difference {err}){'; two mesh runs bit-identical' if name == 'addmult' else ''}")
+    return out
+
+
+def naf_program(name: str, new_reasoner) -> tuple:
+    """One of 17b's programs as ``(reasoner, semiring name)``, built into
+    ``new_reasoner()`` (any reasoner with the port's building methods)."""
+    r = new_reasoner()
+    rule = r.rule_from_strings
+
+    def add(prems, concls, negs=None):
+        r.add_rule(rule(prems, concls, negative=negs))
+
+    prov = "minmax"
+    if name == "naf_minmax":
+        for i in range(12):
+            r.add_tagged_triple(f"a{i}", "p", f"b{i}", 0.5 + 0.03 * i)
+        for i in range(0, 12, 3):
+            r.add_tagged_triple(f"b{i}", "broken", "yes", 0.3)
+        add([("?x", "p", "?y")], [("?x", "ok", "?y")], [("?y", "broken", "yes")])
+    elif name == "naf_boolean_feeds_positive":
+        prov = "boolean"
+        for i in range(10):
+            r.add_abox_triple(f"v{i}", "p", f"w{i}")
+        add([("?v", "p", "?w")], [("?v", "q", "?w")], [("missing", "r", "z")])
+        add([("?v", "q", "?w")], [("?v", "s", "?w")])
+    elif name == "naf_addmult":
+        prov = "addmult"
+        for s, o, t in (("a", "b", 0.9), ("b", "c", 0.8)):
+            r.add_tagged_triple(s, "p", o, t)
+        r.add_tagged_triple("c", "broken", "yes", 0.4)
+        for i in range(8):
+            r.add_tagged_triple(f"u{i}", "p", f"v{i % 3}", 0.3 + 0.08 * i)
+        r.add_tagged_triple("v1", "broken", "yes", 0.25)
+        add([("?x", "p", "?y")], [("?x", "ok", "?y")], [("?y", "broken", "yes")])
+    elif name == "naf_addmult_across_passes":
+        prov = "addmult"
+        for s, p, o, t in (("a", "p", "b", 0.6), ("c", "p", "d", 0.5),
+                           ("d", "blocked", "yes", 0.3), ("a", "r", "b", 0.7),
+                           ("e", "r", "f", 0.4)):
+            r.add_tagged_triple(s, p, o, t)
+        add([("?x", "p", "?y")], [("?x", "q", "?y")], [("?y", "blocked", "yes")])
+        add([("?x", "q", "?y")], [("?x", "s", "?y")])
+        add([("?x", "r", "?y")], [("?x", "w", "?y")], [("?x", "s", "?y")])
+    elif name.startswith("cross_blocking"):
+        prov = name.split("_")[-1]
+        r.add_abox_triple("a", "p", "b")
+        r.add_abox_triple("c", "p", "d")
+        add([("?x", "p", "?y")], [("?y", "blocked", "yes")], [("dummy", "d", "d")])
+        add([("?x", "p", "?y")], [("?x", "ok", "?y")], [("?y", "blocked", "yes")])
+    elif name == "naf_join_minmax":
+        for i in range(40):
+            r.add_tagged_triple(f"p{i}", "knows", f"p{(i * 7 + 3) % 40}", 0.5 + 0.01 * i)
+            r.add_tagged_triple(f"p{i}", "worksAt", f"org{i % 6}", 0.9 - 0.01 * i)
+        r.add_tagged_triple("org2", "suspended", "yes", 0.4)
+        r.add_tagged_triple("org5", "suspended", "yes", 1.0)
+        add([("?x", "knows", "?y"), ("?y", "worksAt", "?o")], [("?x", "colleagueAt", "?o")],
+            [("?o", "suspended", "yes")])
+    elif name == "self_blocking":
+        prov = "boolean"
+        r.add_abox_triple("a", "p", "b")
+        add([("?x", "p", "?y")], [("?y", "blocked", "yes")], [("?x", "blocked", "yes")])
+    elif name == "order_sensitive":
+        prov = "addmult"
+        for i in range(4):
+            r.add_tagged_triple(f"n{i}", "next", f"n{i + 1}", 0.9)
+            r.add_tagged_triple(f"n{i}", "alt", f"n{i + 1}", 0.4)
+        add([("?x", "next", "?y"), ("?y", "next", "?z")], [("?x", "next", "?z")])
+        add([("?x", "alt", "?y"), ("?y", "next", "?z")], [("?x", "next", "?z")])
+    elif name == "structural":
+        prov = "topk"
+        r.add_abox_triple("a", "p", "b")
+        add([("?x", "p", "?y")], [("?x", "q", "?y")])
+    return r, prov
+
+
+def naf_mesh_step(dev, mesh) -> dict:
+    """17b: the NAF programs on the mesh, facts and tags equal to the port's
+    host loop (AddMult within ``PROV_ADDMULT_TOL`` a tag), every dispatch
+    launching the fused filter on every shard, and the join's program the
+    merge path; the refused shapes raise ``Unsupported``."""
+    from kolibrie_tpu_torch import Reasoner
+    from kolibrie_tpu_torch.parallel import DistProvenanceReasoner
+    from kolibrie_tpu_torch.parallel.dist_provenance import Unsupported
+    from kolibrie_tpu_torch.reasoner.provenance import make_provenance
+    from kolibrie_tpu_torch.reasoner.provenance_seminaive import (
+        infer_with_provenance_host,
+        seed_tag_store,
+    )
+
+    def build(name):
+        r, prov = naf_program(name, lambda: Reasoner(device=dev))
+        return r, make_provenance(prov, k=3)
+
+    on_card = dev.type == "cuda"
+    out = {}
+    for name in NAF_PROGRAMS:
+        host, prov = build(name)
+        hstore = seed_tag_store(host, prov)
+        infer_with_provenance_host(host, prov, hstore)
+        r, prov = build(name)
+        store = seed_tag_store(r, prov)
+        dr = DistProvenanceReasoner(mesh, r, prov, store)
+        derived, launches, ms = step_launches(dr.infer)
+        if r.facts.triples_set() != host.facts.triples_set() or derived == 0:
+            raise AssertionError(f"17b {name}: {derived} derived; facts differ from the host loop")
+        err = same_tags(dict(hstore.tags), dict(store.tags), prov.name == "addmult")
+        floor = {"filter_mask": mesh.size * dr.dispatches}
+        if name == "naf_join_minmax":
+            floor["merge_path_join"] = mesh.size * dr.dispatches
+        need_dispatch_launches(f"17b {name}", launches, floor, on_card)
+        out[name] = {"derived": derived, "ms": ms, "dispatches": dr.dispatches,
+                     "sequential": dr.naf_sequential, "max_tag_err": err, "launches": launches}
+        log(f"17b {name}: {out[name]}")
+    for name in NAF_REFUSED:
+        r, prov = build(name)
+        try:
+            DistProvenanceReasoner(mesh, r, prov, seed_tag_store(r, prov))
+        except Unsupported:
+            continue
+        raise AssertionError(f"17b {name}: the mesh reasoner took a program it must refuse")
+    log(f"17b: {', '.join(NAF_REFUSED)} raise Unsupported")
+    return out
+
+
+def ml_digit_arrays(n: int, seed: int) -> tuple:
+    """12c's digit samples as arrays: the features as ``ml_digit_ntriples``
+    writes them (four decimals) and the labels."""
+    import numpy as np
+
+    x0, x1, label = ml_digit_draw(n, seed)
+    x = np.array([[float(f"{a:.4f}"), float(f"{b:.4f}")] for a, b in zip(x0, x1)],
+                 dtype=np.float32)
+    return x, label.astype(np.float32)
+
+
+def two_hop_new(s, p, o, p1: int, p2: int, head: int) -> tuple:
+    """numpy: the pairs (x, z) of ``x p1 y . y p2 z`` that are no ``head``
+    fact yet, and the count of such 2-hop paths."""
+    import numpy as np
+
+    a, b = p == p1, p == p2
+    xs, ys = s[a].astype(np.int64), o[a].astype(np.int64)
+    order = np.argsort(s[b], kind="stable")
+    bs, bo = s[b].astype(np.int64)[order], o[b].astype(np.int64)[order]
+    lo = np.searchsorted(bs, ys, "left")
+    cnt = np.searchsorted(bs, ys, "right") - lo
+    start = np.repeat(lo, cnt) + np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    pairs = np.unique(np.repeat(xs, cnt) << 32 | bo[start])
+    h = p == head
+    have = np.unique(s[h].astype(np.int64) << 32 | o[h].astype(np.int64))
+    return int(np.setdiff1d(pairs, have).size), int(cnt.sum())
+
+
+# 17c's neurosymbolic rules: the transitive subOrganizationOf rule (LUBM's
+# generator gives no 2-hop chain, departments are suborganizations of
+# universities only, so it derives nothing) and phase 6's memberOf lift
+# along it (640,000 at LUBM-1000), both binary chains of DistRuleSet
+NEURO_RULES = (("subOrganizationOf", "subOrganizationOf", "subOrganizationOf"),
+               ("memberOf", "subOrganizationOf", "memberOf"))
+
+
+def train_mesh_step(dev, mesh, lubm) -> dict:
+    """17c: ``dp_train_step`` over 12c's digit samples (one equal slice a
+    shard) for ``TRAIN_STEPS`` steps, each loss and the last params, Adam
+    moments and step count within ``TRAIN_TOL`` of the one-device
+    ``_dp_step`` on the whole batch from the same state, the loss falling; then ``neurosymbolic_step`` on phase 16a's partition of
+    LUBM-1000 for each of ``NEURO_RULES`` through ``DistRuleSet``, its
+    count equal to numpy's new 2-hop pairs.  The fast path's round compares
+    predicates inline (as the reference's does), so it launches the merge
+    path and no filter."""
+    import numpy as np
+    import torch
+
+    from benches.lubm import UB
+    from kolibrie_tpu_torch.core.rule import Rule
+    from kolibrie_tpu_torch.core.terms import Term, TriplePattern
+    from kolibrie_tpu_torch.ops import round_cap
+    from kolibrie_tpu_torch.parallel import (
+        DistRuleSet,
+        DistributedReasoner,
+        ShardedTripleStore,
+        dp_train_step,
+        make_train_state,
+        neurosymbolic_step,
+    )
+    from kolibrie_tpu_torch.parallel.train_step import _dp_step
+
+    x, y = ml_digit_arrays(ML_SAMPLES, ML_SEED)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    st = one = make_train_state(torch.Generator().manual_seed(ML_SEED), 2, (16,), device=dev)
+    losses, diffs, walls = [], [], []
+    for _ in range(TRAIN_STEPS):
+        (st, loss), _l, ms = step_launches(lambda: dp_train_step(mesh, st, x, y, lr=TRAIN_LR))
+        (one, loss1), _l, ms1 = step_launches(lambda: _dp_step(one, xt, yt, TRAIN_LR))
+        losses.append(float(loss))
+        diffs.append(abs(float(loss) - float(loss1)))
+        walls.append((ms, ms1))
+    # Adam's update barely moves under a scaled gradient, so the losses alone
+    # would miss a wrong gradient mean: the state must agree too
+    state_diff = max(float((a - b).abs().max()) for key in ("params", "m", "v")
+                     for pa, pb in zip(st[key], one[key]) for a, b in zip(pa, pb))
+    if (max(diffs) > TRAIN_TOL or state_diff > TRAIN_TOL or int(st["t"]) != int(one["t"])
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"17c dp_train_step: losses {losses[0]} .. {losses[-1]}, largest "
+                             f"difference from the one-device step {max(diffs)}, in the state "
+                             f"{state_diff} (step {int(st['t'])} against {int(one['t'])})")
+    out = {"dp": {"steps": TRAIN_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+                  "max_loss_diff": max(diffs), "max_state_diff": state_diff,
+                  "step_ms": [w[0] for w in walls[1:]],
+                  "one_device_ms": [w[1] for w in walls[1:]]}}
+    log(f"17c dp_train_step: {out['dp']}")
+
+    s, p, o = lubm.store.columns()
+    store, _l, part_ms = step_launches(lambda: ShardedTripleStore.from_columns(mesh, s, p, o))
+    out["partition_ms"] = part_ms
+    V, C = Term.variable, Term.constant
+    for names in NEURO_RULES:
+        p1, p2, head = (lubm.dictionary.lookup(UB + k) for k in names)
+        hs, hp, ho = store.gather_host()
+        want, paths = two_hop_new(hs, hp, ho, p1, p2, head)
+        rule = Rule(premise=[TriplePattern(V("x"), C(p1), V("y")),
+                             TriplePattern(V("y"), C(p2), V("z"))],
+                    conclusion=[TriplePattern(V("x"), C(head), V("z"))])
+        # an exchange bucket holds at most every p1 fact (the delta routed
+        # to the object owners) or every derivation; a shard's join output
+        # at most every path
+        cap = round_cap(max(paths, int((hp == p1).sum()), 1))
+        dr = DistributedReasoner(mesh, DistRuleSet.from_rules([rule]), fact_cap=store.cap,
+                                 delta_cap=store.cap, join_cap=cap, bucket_cap=cap)
+        before = store.n_triples
+        resident = None
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        (st, loss, count), launches, ms = step_launches(
+            lambda: neurosymbolic_step(mesh, st, x, y, dr, store, lr=TRAIN_LR))
+        if count != want or store.n_triples != before + want or not np.isfinite(loss):
+            raise AssertionError(f"17c neurosymbolic_step {names}: count {count} (numpy {want}), "
+                                 f"{store.n_triples} triples, loss {loss}")
+        need_dispatch_launches(f"17c neurosymbolic_step {names}", launches,
+                               {"merge_path_join": 2 * mesh.size}, dev.type == "cuda")
+        rec = out["neurosymbolic_" + names[0]] = {
+            "count": count, "paths": paths, "loss": loss, "ms": ms, "caps": [store.cap, cap],
+            "launches": launches, "resident_bytes": resident,
+            "peak_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None}
+        log(f"17c neurosymbolic_step {names}: {rec}")
+    return out
+
+
+def run_prov_mesh_phase(dev, main_path: dict, prov: dict) -> dict:
+    """Phase 17 (17a-17c) on the mesh of phase 16 (four shards over the
+    cards present); its launches counted from just before 17a to just after
+    17c, with no call of a kernel's plain version on the card."""
+    from kolibrie_tpu_torch.ops import kernels as K
+    from kolibrie_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    lubm = next(db for name, db, _q, _w in main_path["queries"] if name == "q2")
+    mesh = make_mesh(MESH_SHARDS, devices=mesh_devices(dev, MESH_SHARDS))
+    log(f"phase 17: {MESH_SHARDS} shards on {[str(d) for d in mesh.devices]}")
+    captured, report = {}, {}
+    undo = [recorder_install(captured), mesh_filter_recorder(captured)]
+    try:
+        with PlainCalls() as plain:
+            K.reset_launches()
+            report["17a"] = prov_mesh_step(dev, mesh, prov_workload(PROV_FACTS, PROV_SEED),
+                                           prov["results"])
+            report["17b"] = naf_mesh_step(dev, mesh)
+            report["17c"] = train_mesh_step(dev, mesh, lubm)
+            total = {k: v for k, v in K.LAUNCHES.items() if v}
+            if dev.type == "cuda" and any(plain.counts.values()):
+                raise AssertionError(f"phase 17 called plain versions: {plain.counts}")
+    finally:
+        for u in undo:
+            u()
+    need_dispatch_launches("phase 17", total, {k: 1 for k in MESH_KERNELS}, dev.type == "cuda")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 launches: {total}; {report['seconds']:.1f} s")
+    return {"report": report, "launches": total, "captured": captured}
+
+
 def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
     """One kernel row: its check against the plain version on ``args``,
     device times of the kernel, the plain version and the library call,
@@ -5601,7 +6003,7 @@ def load_parent_kernels(root: str):
 def kernels_at_main_path_shapes(
     main_path: dict, surface: dict, closure: dict, entries: dict, rsp: dict, statements: dict,
     prov: dict, cw: dict, load: dict, ml: dict, repeated: dict, resilience: dict, serving: dict,
-    mesh: dict, parent=None,
+    mesh: dict, prov_mesh: dict, parent=None,
 ):
     """Phase 5: each kernel against its plain version on the largest inputs
     its path gave it, with both timed and the bytes bound.  Launches are
@@ -5616,7 +6018,8 @@ def kernels_at_main_path_shapes(
     phase 14 (14a-14d) for the merge path, the lex probes and the RULE's
     fused filter, phase 15 (15a-15e, the requests the servers answered)
     for the merge path and the lex probes, phase 16 (16a-16d, the mesh
-    path) for the merge path and the fused filter.  The merge path's and the
+    path) and phase 17 (17a-17c, the mesh's tagged closures and training
+    steps) for the merge path and the fused filter.  The merge path's and the
     filter's rows also log their kernels' ``-Xptxas -v`` lines and, with
     ``parent`` (another checkout's kernel module), that checkout's kernel
     timed in turns with this one on the same inputs."""
@@ -5779,6 +6182,15 @@ def kernels_at_main_path_shapes(
     line.append(timed_row("filter_mask[mesh]", csrc + "filter_mask.cu", pk + "887",
                           l16.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
                           check_filter, filter_library(fargs)))
+    # phase 17: its launches (17a-17c), at the largest calls of its mesh path
+    pc17, l17 = prov_mesh["captured"], prov_mesh["launches"]
+    line.append(timed_row("merge_path_join[prov-mesh]", csrc + "merge_join.cu", pk + "181",
+                          l17.get("merge_path_join", 0), pc17["merge_path_join"][1],
+                          K.merge_path, K.merge_path_plain, merge_path_bytes, check_merge_path))
+    fargs = pc17["filter_mask"][1]
+    line.append(timed_row("filter_mask[prov-mesh]", csrc + "filter_mask.cu", pk + "887",
+                          l17.get("filter_mask", 0), fargs, filt, filt_plain, filter_bytes,
+                          check_filter, filter_library(fargs)))
     rargs = rsp["captured"]["merge_path_join"][1]
     line.append(timed_row("merge_path_join[rsp]", csrc + "merge_join.cu", pk + "181",
                           rsp["launches"]["merge_path_join"], rargs, K.merge_path,
@@ -5891,10 +6303,14 @@ def main(argv=None) -> int:
     # ---- 16. the multi-device layer: four shards over the cards present
     mesh = run_mesh_phase(dev, main_path, closure)
 
+    # ---- 17. distributed provenance and the training steps on the mesh
+    prov_mesh = run_prov_mesh_phase(dev, main_path, prov)
+    del prov["results"]
+
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(
         main_path, surface, closure, entries, rsp, statements, prov, cw, load, ml, repeated,
-        resilience, serving, mesh, parent,
+        resilience, serving, mesh, prov_mesh, parent,
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

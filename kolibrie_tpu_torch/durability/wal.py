@@ -328,6 +328,23 @@ class WalWriter:
         with self._lock:
             return self.segment, self._size
 
+    def write_token(self) -> Tuple[int, int]:
+        """``(segment, byte_offset)`` just past the last record appended:
+        the segment a follower must have applied to hold every write so
+        far.  Equal to :meth:`position` unless the active segment holds
+        no record yet — a follower's poll sealed it, or an append rotated
+        it, after the last append — in which case the records end in the
+        sealed segment before it, and a token naming the empty one would
+        wait for a segment no seal ships until the next write."""
+        with self._lock:
+            seg, size = self.segment, self._size
+        if size > len(SEG_MAGIC) or seg <= 1:
+            return seg, size
+        try:
+            return seg - 1, os.path.getsize(segment_path(self.wal_dir, seg - 1))
+        except OSError:  # pruned: the snapshot that pruned it holds it
+            return seg - 1, 0
+
     def _rotate_locked(self) -> None:
         self._fh.flush()
         if self.fsync_policy != "never":

@@ -1227,7 +1227,7 @@ class KolibrieHandler(BaseHTTPRequestHandler):
             # read-your-writes token: a follower that has applied this
             # segment holds this write (segments seal whole — see
             # replication/primary.py)
-            seg, off = state.durability.wal.position()
+            seg, off = state.durability.wal.write_token()
             body["watermark"] = {"segment": seg, "offset": off}
         self._send_json(body)
 

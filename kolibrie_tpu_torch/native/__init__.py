@@ -9,7 +9,8 @@ among others), not a device kernel.  Everything here degrades as the
 reference's loader does: if the compiler or the library is unavailable,
 ``load()`` returns None and callers keep using the pure-Python
 implementations.  Only the entry points that ``sdd_native.py``,
-``nt_native.py`` and ``ttl_native.py`` call are declared.
+``nt_native.py``, ``ttl_native.py`` and ``join_native.py`` call are
+declared.
 """
 
 from __future__ import annotations
@@ -77,6 +78,22 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "kn_ttl_prefixes_len": ([ptr], i64),
         "kn_ttl_prefixes": ([ptr, c.c_char_p], None),
         "kn_ttl_free": ([ptr], None),
+        "kn_join_u32": (
+            [
+                c.POINTER(c.c_uint32),
+                i64,
+                c.POINTER(c.c_uint32),
+                i64,
+                c.POINTER(c.c_uint32),
+                c.POINTER(c.c_uint32),
+                i64,
+            ],
+            i64,
+        ),
+        "kn_gather_u32": (
+            [c.POINTER(c.c_uint32), c.POINTER(c.c_uint32), i64, c.POINTER(c.c_uint32)],
+            None,
+        ),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)

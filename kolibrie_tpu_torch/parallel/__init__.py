@@ -9,16 +9,18 @@ Port of ``kolibrie_tpu/parallel/``:
   unary/binary-chain rules (:mod:`dist_fixpoint`) and a general path for
   arbitrary premise counts, constants, filters and NAF
   (:mod:`dist_general`),
+- the distributed provenance fixpoint: f64 semiring tag columns over the
+  mesh, stratified NAF included (:mod:`dist_provenance`),
 - full SPARQL plans over the mesh (:mod:`dist_query`) and mesh serving of
   batched template groups (:mod:`sharded_serving`),
-- the one-device neural-predicate training step (:mod:`train_step`).
+- neural-predicate training: one device, data-parallel over the mesh, and
+  the data-parallel step followed by a distributed reasoning round
+  (:mod:`train_step`).
 
 A :class:`~kolibrie_tpu_torch.parallel.mesh.Mesh` is a tuple of
 ``torch.device`` (entries may repeat: several shards on one card, or
 ``[torch.device("cpu")] * 8`` in the tests); the reference's ``shard_map``
 bodies are controller loops over the shards, split at each collective.
-The data-parallel training step, the step fused with a reasoning round and
-the distributed provenance fixpoint come with the next slice.
 """
 
 from kolibrie_tpu_torch.parallel.mesh import Mesh, make_mesh, mesh_axis
@@ -33,6 +35,7 @@ from kolibrie_tpu_torch.parallel.dist_general import (
     DistGeneralReasoner,
     distributed_seminaive_general,
 )
+from kolibrie_tpu_torch.parallel.dist_provenance import DistProvenanceReasoner
 from kolibrie_tpu_torch.parallel.dist_query import (
     DistQueryExecutor,
     execute_query_distributed,
@@ -44,7 +47,11 @@ from kolibrie_tpu_torch.parallel.sharded_serving import (
     detach_sharded,
     sharded_compile_stats,
 )
-from kolibrie_tpu_torch.parallel.train_step import make_train_state
+from kolibrie_tpu_torch.parallel.train_step import (
+    dp_train_step,
+    make_train_state,
+    neurosymbolic_step,
+)
 
 __all__ = [
     "Mesh",
@@ -56,6 +63,7 @@ __all__ = [
     "DistRuleSet",
     "DistributedReasoner",
     "DistGeneralReasoner",
+    "DistProvenanceReasoner",
     "distributed_seminaive",
     "distributed_seminaive_general",
     "DistQueryExecutor",
@@ -65,5 +73,7 @@ __all__ = [
     "detach_sharded",
     "active_sharded",
     "sharded_compile_stats",
+    "dp_train_step",
     "make_train_state",
+    "neurosymbolic_step",
 ]

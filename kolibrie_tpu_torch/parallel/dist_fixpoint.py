@@ -347,13 +347,19 @@ class DistributedReasoner:
             if int(count) == 0:
                 break
             rounds += 1
-        fcols, fv, gcols, gv = state[:4]
-        store.by_subj = tuple(tuple(c[k] for c in fcols) for k in range(3))
-        store.by_subj_valid = tuple(fv)
-        store.by_obj = tuple(tuple(c[k] for c in gcols) for k in range(3))
-        store.by_obj_valid = tuple(gv)
-        # the probe index rebuilds lazily on the next ensure_subj_index()
+        adopt_state(store, state)
         return rounds
+
+
+def adopt_state(store: ShardedTripleStore, state) -> None:
+    """Write a round's fact blocks (``state[:4]``: subject copy, its
+    validity, object copy, its validity, per shard) back into ``store``;
+    the probe index rebuilds lazily on the next ``ensure_subj_index()``."""
+    fcols, fv, gcols, gv = state[:4]
+    store.by_subj = tuple(tuple(c[k] for c in fcols) for k in range(3))
+    store.by_subj_valid = tuple(fv)
+    store.by_obj = tuple(tuple(c[k] for c in gcols) for k in range(3))
+    store.by_obj_valid = tuple(gv)
 
 
 def distributed_seminaive(mesh: Mesh, store: ShardedTripleStore, rules: List[Rule], **caps) -> int:

@@ -86,7 +86,9 @@ from kolibrie_tpu_torch.reasoner.device_fixpoint import (
     lower_rules,
 )
 
-__all__ = ["supports", "infer_provenance_device", "AUTO_MIN_FACTS", "LAST_RUN"]
+__all__ = [
+    "supports", "supports_idempotent", "infer_provenance_device", "AUTO_MIN_FACTS", "LAST_RUN",
+]
 
 # below this many facts the host loop wins (device round trips).  On an
 # H100 80GB HBM3 at 700 W (chip_profile.py::profile_prov_crossover, the
@@ -128,6 +130,13 @@ def _record(kind: str, caps: tuple, code: int) -> None:
 
 def supports(provenance) -> bool:
     return getattr(provenance, "name", None) in _DEVICE_SEMIRINGS
+
+
+def supports_idempotent(provenance) -> bool:
+    """True only for the scalar-IDEMPOTENT semirings (min/max tag algebra).
+    The distributed tagged round's idempotent kind has no exactly-once
+    accounting, so it gates on THIS predicate, not :func:`supports`."""
+    return getattr(provenance, "name", None) in _IDEMPOTENT
 
 
 def _addmult_order_sensitive(rules) -> bool:

@@ -108,6 +108,26 @@ def test_wal_segment_rotation(tmp_path):
     assert [m["i"] for m, _ in records] == [0, 1, 2, 3] and stats.segments >= 4
 
 
+@pytest.mark.parametrize("rotate", ["seal", "size"])
+def test_wal_write_token_names_the_segment_holding_the_last_write(tmp_path, rotate):
+    """A follower's poll sealing the active segment, or an append rotating
+    it, between a write and its read-your-writes token leaves the active
+    segment empty: the token names the sealed segment that holds the
+    write, not the empty one, which no seal ships until the next write."""
+    d = wal_dir(tmp_path)
+    w = wal.WalWriter(d, fsync_policy="never", segment_bytes=64 if rotate == "size" else 1 << 20)
+    assert w.write_token() == w.position() == (1, len(wal.SEG_MAGIC))  # nothing written
+    w.append({"k": "mut", "i": 0}, b"x" * 64)
+    if rotate == "seal":
+        assert w.write_token() == w.position()
+        assert w.seal_if_dirty() == 1
+    assert w.position() == (2, len(wal.SEG_MAGIC))
+    assert w.write_token() == (1, os.path.getsize(wal.segment_path(d, 1)))
+    w.append({"k": "mut", "i": 1})
+    assert w.write_token() == w.position() and w.position()[0] == 2
+    w.close()
+
+
 def _append_raw(d, segment, raw):
     with open(wal.segment_path(d, segment), "ab") as fh:
         fh.write(raw)

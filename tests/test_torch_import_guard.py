@@ -201,6 +201,28 @@ except RuntimeError as e:
     assert "CUDA" in str(e)
 else:
     raise AssertionError("the CLI without --device and no CUDA card must raise")
+import numpy as np
+import torch
+from kolibrie_tpu_torch.native import join_native
+from kolibrie_tpu_torch.parallel import (
+    DistProvenanceReasoner, dist_provenance, dp_train_step, make_mesh, neurosymbolic_step,
+)
+assert join_native.available() in (True, False)
+m2 = make_mesh(2, devices=[torch.device("cpu")] * 2)
+pr = t.clone()
+prov = provenance.make_provenance("minmax")
+pstore = provenance_seminaive.seed_tag_store(pr, prov)
+assert DistProvenanceReasoner(m2, pr, prov, pstore).infer() == 15
+assert len(pstore) == 21, len(pstore)
+st = train_step.make_train_state(torch.Generator().manual_seed(0), 2, (4,), device="cpu")
+st, loss = dp_train_step(m2, st, np.ones((4, 2)), np.ones(4))
+assert st["params"][0][0].device.type == "cpu" and float(loss) > 0
+try:
+    make_mesh(2)
+except RuntimeError as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("a mesh without devices and no CUDA card must raise")
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m.startswith("kolibrie_tpu.")
@@ -283,7 +305,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     for path in ("obs/log", "obs/export", "obs/flightrec", "obs/promtext", "obs/timeseries",
                  "analysis/lockcheck", "frontends/http_server", "frontends/cli",
                  "frontends/rules", "frontends/router_main", "replication/protocol",
-                 "replication/primary", "replication/follower", "replication/router"):
+                 "replication/primary", "replication/follower", "replication/router",
+                 "parallel/dist_provenance", "parallel/train_step", "native/join_native"):
         assert (pkg / f"{path}.py").exists(), path
     files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",

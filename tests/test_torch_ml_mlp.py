@@ -22,6 +22,7 @@ from kolibrie_tpu.ml.mlp import MlpNeuralPredicate as RefMlp
 from kolibrie_tpu.parallel import train_step as ref_ts
 from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
 from kolibrie_tpu_torch.parallel import train_step as port_ts
+from torch_train_state import assert_state, carried_state
 
 KINDS = {
     "binary": dict(in_dim=3, hidden=[8], output_kind="binary", labels=None),
@@ -147,27 +148,6 @@ def test_save_in_one_package_load_in_the_other(tmp_path, kind, direction):
     np.testing.assert_allclose(got.predict(x), want.predict(x), rtol=0, atol=1e-6)
     assert got.labels == want.labels and got.hidden == want.hidden
     np.testing.assert_array_equal(got.feature_std, want.feature_std)
-
-
-def carried_state(ref_state):
-    """The reference's train state as the port's (tensors on the CPU)."""
-    def t(a):
-        return torch.from_numpy(np.array(a))
-
-    return {
-        "params": [(t(w), t(b)) for w, b in ref_state["params"]],
-        "m": [(t(w), t(b)) for w, b in ref_state["m"]],
-        "v": [(t(w), t(b)) for w, b in ref_state["v"]],
-        "t": torch.tensor(int(ref_state["t"]), dtype=torch.int32),
-    }
-
-
-def assert_state(got, want, atol):
-    for key in ("params", "m", "v"):
-        for (gw, gb), (rw, rb) in zip(got[key], want[key]):
-            np.testing.assert_allclose(gw.numpy(), np.asarray(rw), rtol=0, atol=atol)
-            np.testing.assert_allclose(gb.numpy(), np.asarray(rb), rtol=0, atol=atol)
-    assert int(got["t"]) == int(want["t"])
 
 
 def test_make_train_state_shapes():

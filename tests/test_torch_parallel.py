@@ -9,11 +9,16 @@ two-tier, after adds and deletes), the distributed equi-join with and
 without bucket / output overflow and the doubling retry, the co-located
 BGP count at LUBM-2, and both distributed fixpoints — their closures equal
 to the reference's and to the port's single-device host reasoner, their
-overflow protocols raising or converging as the reference's do.
+overflow protocols raising or converging as the reference's do.  The
+training steps start from the reference's carried state: the
+data-parallel step's loss and state within 1e-5 of the reference's over
+30 steps, the neurosymbolic step's count and store columns equal to the
+reference's.
 """
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -36,6 +41,7 @@ from kolibrie_tpu_torch.parallel.dist_join import shard_of_dev
 from kolibrie_tpu_torch.parallel.sharded_store import partition_rows as port_partition
 from kolibrie_tpu_torch.parallel.sharded_store import shard_of as port_shard_of
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner as PortReasoner
+from torch_train_state import assert_state, carried_state
 
 N = 8
 CPU = torch.device("cpu")
@@ -382,3 +388,59 @@ def test_dist_general_unsupported_shapes(meshes, prems):
     r.add_rule(r.rule_from_strings(prems, [("?x", "linked", "?o")]))
     with pytest.raises(P.dist_general.Unsupported):
         P.distributed_seminaive_general(pmesh, r)
+
+
+# ------------------------------------------------------------ training steps
+
+
+def test_dp_train_step_matches_reference_over_30_steps(meshes):
+    rmesh, pmesh = meshes
+    ref = R.make_train_state(jax.random.PRNGKey(0), in_dim=4, hidden=(8,))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 4))
+    y = (x.sum(1) > 0).astype(np.float32)
+    st, rst = carried_state(ref), ref
+    losses = []
+    for _ in range(30):
+        st, loss = P.dp_train_step(pmesh, st, x, y)
+        rst, rloss = R.dp_train_step(rmesh, rst, x, y)
+        assert abs(float(loss) - float(rloss)) <= 1e-5
+        losses.append(float(loss))
+    assert_state(st, rst, 1e-5)
+    assert losses[-1] < losses[0]
+    # a batch that does not split into 8 equal shards is refused, as the
+    # reference's sharded device_put refuses it
+    with pytest.raises(ValueError):
+        P.dp_train_step(pmesh, st, x[:30], y[:30])
+
+
+def neuro_inputs(mesh, Store, Reasoner, RuleSet, rule, join_cap=1024):
+    store = Store.from_columns(mesh, *chain_cols(16, pred=7), cap_per_shard=512)
+    dr = Reasoner(mesh, RuleSet.from_rules([rule]), fact_cap=512, delta_cap=512,
+                  join_cap=join_cap, bucket_cap=256)
+    return store, dr
+
+
+def test_neurosymbolic_step_matches_reference(meshes):
+    rmesh, pmesh = meshes
+    ref = R.make_train_state(jax.random.PRNGKey(0), in_dim=3, hidden=(8,))
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(32, 3))
+    y = (x.sum(1) > 0).astype(np.float32)
+    rstore, rdr = neuro_inputs(rmesh, R.ShardedTripleStore, R.DistributedReasoner, R.DistRuleSet,
+                               trans_rule(RefRule, RefTerm, RefPattern, 7))
+    rst, rloss, rcount = R.neurosymbolic_step(rmesh, ref, x, y, rdr, rstore)
+    store, dr = neuro_inputs(pmesh, P.ShardedTripleStore, P.DistributedReasoner, P.DistRuleSet,
+                             trans_rule(PortRule, PortTerm, PortPattern, 7))
+    st, loss, count = P.neurosymbolic_step(pmesh, carried_state(ref), x, y, dr, store)
+    assert count == rcount == 14  # the 2-hop facts of round 1
+    assert isinstance(loss, float) and abs(loss - rloss) <= 1e-5
+    assert_state(st, rst, 1e-5)
+    same_store(rstore, store)
+    assert store.n_triples == 15 + 14
+    # a join overflow raises and leaves the store as it was
+    store, dr = neuro_inputs(pmesh, P.ShardedTripleStore, P.DistributedReasoner, P.DistRuleSet,
+                             trans_rule(PortRule, PortTerm, PortPattern, 7), join_cap=1)
+    with pytest.raises(OverflowError):
+        P.neurosymbolic_step(pmesh, carried_state(ref), x, y, dr, store)
+    assert store.n_triples == 15

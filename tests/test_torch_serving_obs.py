@@ -17,6 +17,7 @@ import json
 import os
 import re
 import threading
+import time
 
 import pytest
 
@@ -329,12 +330,19 @@ def test_trace_propagation_http_to_executor(server):
         headers={"X-Kolibrie-Trace-Id": "trace-port-e2e"})
     assert st == 200 and headers.get("X-Kolibrie-Trace-Id") == "trace-port-e2e"
     assert len(out["data"]) == 64
-    _, body, _ = get(server, "/debug/traces?trace_id=trace-port-e2e")
-    recs = [json.loads(ln) for ln in body.decode().splitlines() if ln]
+    chain = {"http.request", "batcher.submit", "batcher.dispatch", "query.execute",
+             "query.parse", "query.plan", "device.lower", "device.dispatch", "device.collect"}
+    # the handler closes its http.request span after it has written the
+    # response, so a trace read at once may still lack it
+    deadline = time.monotonic() + 10.0
+    while True:
+        _, body, _ = get(server, "/debug/traces?trace_id=trace-port-e2e")
+        recs = [json.loads(ln) for ln in body.decode().splitlines() if ln]
+        if chain <= {s["name"] for s in recs} or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
     assert recs and all(s["trace_id"] == "trace-port-e2e" for s in recs)
-    assert {"http.request", "batcher.submit", "batcher.dispatch", "query.execute",
-            "query.parse", "query.plan", "device.lower", "device.dispatch",
-            "device.collect"} <= {s["name"] for s in recs}
+    assert chain <= {s["name"] for s in recs}
     ids = {s["span_id"] for s in recs}
     assert all(s["parent_id"] in ids for s in recs if s["parent_id"] is not None)
 
