@@ -304,6 +304,11 @@ result line):
             merge path and no filter: they compare predicates inline, as
             the reference's do); no plain version is called.  Counters
             zeroed just before 17a, read after 17c.
+18. the project linter — ``python -m kolibrie_tpu_torch.analysis --json
+            --max-seconds 60`` in a child process over the package as
+            shipped, against its committed (empty) baseline: its finding
+            count and ``kolint_runtime_s``; a non-zero exit fails the
+            smoke.  No kernel and no card.
 5. kernels (main-path shapes) — each kernel against its plain version on
             the largest inputs its path gave it (phases 4, 6, 6c, 7-17), both
             timed on the device, and the bound: the bytes the function needs
@@ -5906,6 +5911,29 @@ def run_prov_mesh_phase(dev, main_path: dict, prov: dict) -> dict:
     return {"report": report, "launches": total, "captured": captured}
 
 
+# ------------------------------------------------- phase 18: the project linter
+
+
+def run_lint_phase(repo: str) -> dict:
+    """Phase 18: the port's linter over ``kolibrie_tpu_torch/`` in a child
+    process, as a user runs it; its exit code decides."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "kolibrie_tpu_torch.analysis", "--json", "--max-seconds", "60"],
+        cwd=repo, capture_output=True, text=True, timeout=120,
+    )
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(
+            f"phase 18: kolint exited {out.returncode}\n{out.stdout[-4000:]}{out.stderr[-2000:]}"
+        )
+    report = json.loads(out.stdout)
+    log(f"phase 18: kolint {len(report['findings'])} finding(s), {report['suppressed']} "
+        f"suppressed, {report['baselined']} baselined; kolint_runtime_s={report['runtime_s']}; "
+        f"{wall:.1f} s with the child's start")
+    return report
+
+
 def timed_row(name, src, replaces, launches, args, fn, plain, nbytes, check, library=None):
     """One kernel row: its check against the plain version on ``args``,
     device times of the kernel, the plain version and the library call,
@@ -6306,6 +6334,9 @@ def main(argv=None) -> int:
     # ---- 17. distributed provenance and the training steps on the mesh
     prov_mesh = run_prov_mesh_phase(dev, main_path, prov)
     del prov["results"]
+
+    # ---- 18. the project linter over the package as shipped
+    run_lint_phase(repo)
 
     # ---- 5. kernels at the paths' shapes
     kernels = kernels_at_main_path_shapes(

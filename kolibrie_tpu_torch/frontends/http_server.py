@@ -304,7 +304,7 @@ class EngineSession:
 
     # --------------------------------------------------- crash recovery
 
-    def maybe_checkpoint(self) -> None:
+    def maybe_checkpoint(self) -> None:  # kolint: holds[push_lock]
         """Snapshot engine state after a successful push (caller holds
         ``push_lock``).  Failures are non-fatal: a stale checkpoint only
         widens the at-least-once replay window on the next recovery."""
@@ -315,7 +315,7 @@ class EngineSession:
             # counter climb knows recovery will replay a widening window
             _SESSION_CKPT_FAILURES.labels("checkpoint").inc()
 
-    def recover(self) -> bool:
+    def recover(self) -> bool:  # kolint: holds[push_lock]
         """Restore the engine from the last good checkpoint after a
         WindowCrash (caller holds ``push_lock``).  Returns whether the
         session is serving again."""
@@ -453,7 +453,7 @@ class TemplateBatcher:
                 loosest = r.deadline
         return loosest
 
-    def _run_batch(self, batch: List[_BatchRequest]) -> None:
+    def _run_batch(self, batch: List[_BatchRequest]) -> None:  # kolint: holds[dispatch_lock]
         from kolibrie_tpu_torch.query.executor import (
             execute_queries_batched,
             execute_query_volcano,
@@ -492,7 +492,7 @@ class TemplateBatcher:
             r.done.set()
         self._count(batch, texts, uniq, time.perf_counter() - start)
 
-    def _count(self, batch, texts, uniq, elapsed: float) -> None:
+    def _count(self, batch, texts, uniq, elapsed: float) -> None:  # kolint: holds[dispatch_lock]
         ms = elapsed * 1000.0
         parse_cache = self.db.__dict__.get("_plan_cache", {})
         by_fp: Dict[str, List[str]] = {}

@@ -90,12 +90,14 @@ def _artifacts(
     if stats_fn is not None:
         try:
             stats = stats_fn()
+        # kolint: ignore[KL601] a broken stats path must not cost the bundle's other artifacts
         except Exception as exc:
             stats = {"error": repr(exc)}
     if ring is None:
         ring = timeseries.default_ring()
     try:
         timeline = ring.series()
+    # kolint: ignore[KL601] same: timeline render failure degrades to an error marker, not a lost bundle
     except Exception as exc:
         timeline = {"error": repr(exc)}
     enc = lambda obj: json.dumps(  # noqa: E731
@@ -155,6 +157,7 @@ def try_dump(data_dir: str, reason: str, **kw: Any) -> Optional[str]:
     mask the original failure — log and return None instead."""
     try:
         return dump(data_dir, reason, **kw)
+    # kolint: ignore[KL601] last-gasp path: any dump error is logged, never raised over the real crash
     except Exception as exc:
         _log.error("postmortem dump failed", reason=reason, error=repr(exc))
         return None
@@ -273,6 +276,7 @@ class FlightRecorder:
         while not self._stop.wait(self.interval_s):
             try:
                 self.checkpoint()
+            # kolint: ignore[KL601] the recorder must outlive any single broken artifact render
             except Exception as exc:
                 _log.error("blackbox checkpoint failed", error=repr(exc))
 

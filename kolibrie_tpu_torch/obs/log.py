@@ -57,6 +57,7 @@ _loggers_lock = threading.Lock()
 def set_role(role: Optional[str]) -> None:
     """Install the process-wide node role stamped on every record."""
     global _role
+    # kolint: ignore[KL311] process identity is set once at startup before serving threads exist; the rebind is an atomic str swap and readers tolerate either value
     _role = role
 
 
@@ -70,6 +71,7 @@ def set_identity(role: str, port: Optional[int] = None) -> None:
     names which process each hop ran on."""
     global _node
     set_role(role)
+    # kolint: ignore[KL311] same startup-once discipline as _role above; hot log paths read it lock-free by design
     _node = f"{role}:{port}" if port is not None else role
 
 

@@ -163,6 +163,7 @@ class Family:
                 f"got {values!r}"
             )
         key = tuple(str(v) for v in values)
+        # kolint: ignore[KL301] double-checked locking: the lock-free read is a fast path; a miss falls through to the locked re-check below
         child = self._children.get(key)
         if child is None:
             with self._lock:
@@ -243,6 +244,7 @@ class Registry:
         for fn in collectors:
             try:
                 fn()
+            # kolint: ignore[KL601] a broken collector must never break the scrape, and counting it here would recurse into the registry being scraped
             except Exception:
                 pass
 

@@ -68,7 +68,7 @@ class TimeSeriesRing:
         self._samples: List[dict] = []  # guarded by: _lock
         self._seq = 0  # guarded by: _lock — monotonic, survives eviction
 
-    def _append_sample(self, snap: dict, ts: float) -> int:
+    def _append_sample(self, snap: dict, ts: float) -> int:  # kolint: holds[_lock]
         seq = self._seq
         self._seq += 1
         self._samples.append({"seq": seq, "ts": ts, "snap": snap})
@@ -208,6 +208,7 @@ class Sampler:
         while not self._stop.wait(self.interval_s):
             try:
                 self.ring.record()
+            # kolint: ignore[KL601] sampler must survive any registry hiccup; a dropped sample is the correct degradation
             except Exception:
                 pass
 

@@ -475,6 +475,7 @@ class Streamertail:
             lowered.calibrate_host()
         # exploration is advisory: an unlowerable or failing alternative
         # just keeps the structural routing
+        # kolint: ignore[KL601] exploration is advisory: an unlowerable or failing alternative just keeps the structural routing
         except Exception:
             return False
         return True

@@ -225,6 +225,7 @@ class SparqlDatabase:
         application and lazily rebuilt from the restored columns.  The
         reference keeps everything in memory with no snapshot at all
         (SURVEY §5 "checkpoint/resume: none")."""
+        # kolint: durable-path — checkpoints must survive a crash mid-write
         from kolibrie_tpu_torch.durability.fsio import atomic_write
 
         s, p, o = self.store.columns()

@@ -300,6 +300,7 @@ class ReplicationFollower:
         else:
             res = RecoveryResult()
         old = set(self.res.stores)
+        # kolint: ignore[KL312] bootstrap publishes a fully-built RecoveryResult by one atomic rebind; replay is idempotent and concurrent readers tolerate either generation
         self.res = res
         self.manager.generation = max(self.manager.generation, gen)
         # segments below the generation's replay horizon are dead weight

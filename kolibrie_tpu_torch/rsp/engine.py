@@ -599,6 +599,7 @@ class RSPEngine:
                     max_ts = 0
                 # Wait / Timeout: keep waiting for remaining windows
 
+        # kolint: ignore[KL401] the coordinator is engine-lifetime, not per-request: its emissions aggregate many pushes, so no single submitter trace/deadline is the right scope
         self._coordinator = threading.Thread(target=run, daemon=True)
         self._coordinator.start()
 
@@ -647,8 +648,7 @@ class RSPEngine:
         old_cache = getattr(self, "_wt_cache", {})
         new_cache = {}
         annot = getattr(self, "_annot_pred_cache", {})
-        # per-cycle memo confined to the emission path: _build_sds runs only
-        # on the coordinator (or the sole pusher in callback mode)
+        # kolint: ignore[KL311] per-cycle memo confined to the emission path: _build_sds runs only on the coordinator (or the sole pusher in callback mode), never both in one engine
         self._annot_pred_cache = annot
         for cfg in self.window_configs:
             triples: List[WindowedTriple] = []
@@ -682,6 +682,7 @@ class RSPEngine:
                 new_cache[key] = wt
                 triples.append(wt)
             sds.windows[cfg.window_iri] = WindowData(cfg.width, triples)
+        # kolint: ignore[KL311] same emission-path confinement as _annot_pred_cache above
         self._wt_cache = new_cache
         if self.cross_window_context is not None:
             for iri in self.cross_window_context.output_iris:

@@ -59,6 +59,16 @@ def start(httpd) -> str:
     return f"http://127.0.0.1:{httpd.server_address[1]}"
 
 
+def join_all(threads, timeout_s=120.0) -> None:
+    """Join every thread within one shared bound: a client thread still
+    running after it fails the test instead of holding its worker."""
+    deadline = time.monotonic() + timeout_s
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    alive = [t.name for t in threads if t.is_alive()]
+    assert not alive, f"threads still running after {timeout_s} s: {alive}"
+
+
 def post(base, path, payload, headers=None, raw=None, timeout=60):
     """``(status, json body, headers)`` of a POST; HTTP errors included."""
     h = {"Content-Type": "application/json"}

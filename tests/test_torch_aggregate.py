@@ -27,6 +27,7 @@ import kolibrie_tpu_torch as port
 from kolibrie_tpu.ops.jax_compat import enable_x64
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from test_torch_clauses import PREFIXES, employee_db, pair
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ import chip_smoke as CS
 import kolibrie_tpu_torch as port
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PREFIXES = """PREFIX ex: <http://example.org/>
 PREFIX foaf: <http://xmlns.com/foaf/0.1/>

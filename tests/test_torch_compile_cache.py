@@ -29,6 +29,7 @@ from kolibrie_tpu_torch.query import compile_cache as port_cc
 from kolibrie_tpu_torch.query import prewarm
 from kolibrie_tpu_torch.query.executor import plan_cache_info
 from test_torch_clauses import PREFIXES, employee_db, pair
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 def variant(dept, sal) -> str:

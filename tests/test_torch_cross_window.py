@@ -50,6 +50,7 @@ from kolibrie_tpu_torch.reasoner.n3_parser import parse_n3_rules_for_sds
 from kolibrie_tpu_torch.reasoner.provenance import ExpirationProvenance
 from kolibrie_tpu_torch.reasoner.tag_store import TagStore
 from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 PKGS = {

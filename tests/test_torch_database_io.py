@@ -30,6 +30,7 @@ from kolibrie_tpu_torch.core.store import ColumnarTripleStore
 from kolibrie_tpu_torch.native import load as port_native
 from kolibrie_tpu_torch.native import nt_native as port_nt
 from kolibrie_tpu_torch.native import ttl_native as port_ttl
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PortDb = port.SparqlDatabase
 port_exec = port.execute_query_volcano

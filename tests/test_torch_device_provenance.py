@@ -37,6 +37,7 @@ from kolibrie_tpu_torch.reasoner import provenance as tprov
 from kolibrie_tpu_torch.reasoner import provenance_seminaive as tps
 from kolibrie_tpu_torch.reasoner.tag_store import TagStore
 from test_torch_reasoner import port_rule
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 SEMIRINGS = {
     "minmax": (jprov.MinMaxProbability, tprov.MinMaxProbability),

@@ -41,6 +41,7 @@ from kolibrie_tpu.parallel.dist_provenance import Unsupported as RefUnsupported
 from kolibrie_tpu.reasoner.reasoner import Reasoner as RefReasoner
 from kolibrie_tpu_torch.parallel.dist_provenance import Unsupported as PortUnsupported
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner as PortReasoner
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 N = 8
 CPU = torch.device("cpu")

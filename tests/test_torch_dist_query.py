@@ -27,6 +27,7 @@ from kolibrie_tpu.parallel.dist_query import execute_query_distributed as ref_di
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
 from kolibrie_tpu_torch.parallel.dist_query import DistQueryExecutor, Unsupported
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 EX = "PREFIX ex: <http://example.org/>\n"
 

@@ -36,6 +36,7 @@ from kolibrie_tpu_torch.resilience.faultinject import (
     InjectedTornWrite,
 )
 from test_torch_plan_cache import fresh_jax_compile_cache
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,7 @@ import kolibrie_tpu_torch as port
 from benches.lubm import LUBM_Q2, LUBM_Q9, generate_fast
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PREFIXES = """PREFIX ex: <http://example.org/>
 PREFIX foaf: <http://xmlns.com/foaf/0.1/>

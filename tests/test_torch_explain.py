@@ -29,6 +29,7 @@ from kolibrie_tpu_torch.query.executor import plan_cache_info as port_info
 from jax_compile_cache import fresh_jax_compile_cache
 from test_torch_clauses import PREFIXES, employee_db, pair, rdf_star_db
 from test_torch_prepared import graph_pair
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 UB = "PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>\n"
 JOIN_Q = UB + "SELECT ?x ?c WHERE { ?x ub:worksFor ?d . ?x ub:teacherOf ?c . }"

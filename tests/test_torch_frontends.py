@@ -22,7 +22,10 @@ from kolibrie_tpu_torch.frontends import http_server as port_hs
 from kolibrie_tpu_torch.frontends.cli import main as port_cli
 from kolibrie_tpu_torch.obs import log as port_log
 from jax_compile_cache import fresh_jax_compile_cache
-from serving_pair import get, key_shape, masked, post, prom_families, sse_first, start
+from serving_pair import (
+    get, join_all, key_shape, masked, post, prom_families, sse_first, start,
+)
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 TTL = """
 @prefix ex: <http://example.org/> .
@@ -318,8 +321,7 @@ def test_make_server_with_a_mesh_serves_sharded():
             for i in range(len(texts))]
         for th in threads:
             th.start()
-        for th in threads:
-            th.join()
+        join_all(threads)
         for i in range(len(texts)):
             assert answers[i]["data"] == [[f"http://e/n{i + 1}"]]
         sharding = json.loads(get(base, "/stats")[1])["stores"]["m"]["sharding"]
@@ -375,7 +377,7 @@ def test_server_takes_a_burst_of_clients():
             gate, codes, errors = threading.Barrier(64), [], []
 
             def client():
-                gate.wait()
+                gate.wait(timeout=60)
                 try:
                     codes.append(post(target, "/store/query", {"store_id": "none",
                                                                "sparql": "SELECT * {}"})[0])
@@ -385,8 +387,7 @@ def test_server_takes_a_burst_of_clients():
             threads = [threading.Thread(target=client) for _ in range(64)]
             for t in threads:
                 t.start()
-            for t in threads:
-                t.join()
+            join_all(threads)
             assert not errors and codes == [404] * 64, (target, errors[:2])
     finally:
         core.stop()

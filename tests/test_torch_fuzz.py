@@ -12,6 +12,7 @@ import random
 
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
 from test_torch_clauses import assert_same, pair
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 def test_clause_fuzz_matches_reference():

@@ -28,6 +28,7 @@ from benches.lubm import generate_fast
 from kolibrie_tpu.query.executor import execute_query as ref_execute_query
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 H = "PREFIX h: <http://h.e/>\n"
 

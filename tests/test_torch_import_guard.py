@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 
 from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -306,7 +307,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                  "analysis/lockcheck", "frontends/http_server", "frontends/cli",
                  "frontends/rules", "frontends/router_main", "replication/protocol",
                  "replication/primary", "replication/follower", "replication/router",
-                 "parallel/dist_provenance", "parallel/train_step", "native/join_native"):
+                 "parallel/dist_provenance", "parallel/train_step", "native/join_native",
+                 *(f"analysis/{m}" for m in ANALYSIS_MODULES)):
         assert (pkg / f"{path}.py").exists(), path
     files = sorted(pkg.rglob("*.py")) + [
         REPO / "chip_smoke.py",
@@ -318,6 +320,32 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
         for m in _imports(f)
         if m == "jax" or m.startswith("jax.") or m == "kolibrie_tpu"
         or m.startswith("kolibrie_tpu.")
+    ]
+    assert not bad, bad
+
+
+ANALYSIS_MODULES = (
+    "core", "project", "dataflow", "threads", "cache", "explain", "rules_locks",
+    "rules_races", "rules_errors", "rules_durability", "rules_obs", "rules_context",
+    "rules_caching", "rules_tracing", "rules_taint", "rules_pallas", "__main__",
+    "__init__", "lockcheck",
+)
+
+
+def test_the_project_linter_imports_only_the_stdlib_and_itself():
+    # a host tool: neither torch nor jax nor the JAX package, so it lints
+    # on a machine without either
+    pkg = REPO / "kolibrie_tpu_torch" / "analysis"
+    assert {f.stem for f in pkg.glob("*.py")} == set(ANALYSIS_MODULES)
+    bad = [
+        (name, m)
+        for name in ANALYSIS_MODULES
+        for m in _imports(pkg / f"{name}.py")
+        if not (
+            m.split(".")[0] in sys.stdlib_module_names
+            or m == "kolibrie_tpu_torch.analysis"
+            or m.startswith("kolibrie_tpu_torch.analysis.")
+        )
     ]
     assert not bad, bad
 

@@ -31,6 +31,7 @@ from kolibrie_tpu_torch.reasoner import device_provenance as DP
 from kolibrie_tpu_torch.reasoner import provenance_seminaive as PS
 from kolibrie_tpu_torch.rsp.r2r import IncrementalR2R, SimpleR2R
 from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 RULES = """@prefix s: <http://c/> .

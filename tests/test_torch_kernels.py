@@ -24,6 +24,7 @@ from kolibrie_tpu_torch.backend import _LPAD, _RPAD, key1
 from kolibrie_tpu_torch.ops import device_join as tdj
 from kolibrie_tpu_torch.ops import kernels as tk
 from kolibrie_tpu_torch.ops import wcoj as twcoj
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 SENT = 0xFFFFFFFF
 U64_LPAD = np.uint64(0xFFFFFFFFFFFFFFFE)
@@ -573,7 +574,7 @@ def test_launch_counts_survive_concurrent_threads():
     start = threading.Barrier(8)
 
     def work(name, counts):
-        start.wait()
+        start.wait(timeout=60)
         for _ in range(5000):
             tk.count_launch(name, counts)
 
@@ -589,7 +590,8 @@ def test_launch_counts_survive_concurrent_threads():
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
     assert tk.LAUNCHES == {"merge_path_join": 15000, "lex_probe_select": 5000,
                            "lex_probe_validate": 0, "filter_mask": 5000, "tag_combine": 5000}
     assert tk.ENTRY_LAUNCHES["merge_join"] == 10000

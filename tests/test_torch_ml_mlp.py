@@ -23,6 +23,7 @@ from kolibrie_tpu.parallel import train_step as ref_ts
 from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
 from kolibrie_tpu_torch.parallel import train_step as port_ts
 from torch_train_state import assert_state, carried_state
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 KINDS = {
     "binary": dict(in_dim=3, hidden=[8], output_kind="binary", labels=None),

@@ -39,6 +39,7 @@ from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
 from kolibrie_tpu_torch.ml import runtime as port_runtime
 from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PROB_VALUE = "http://kolibrie.tpu/prob#value"
 TRUE = '"true"^^<http://www.w3.org/2001/XMLSchema#boolean>'

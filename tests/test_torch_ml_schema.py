@@ -26,6 +26,7 @@ from kolibrie_tpu_torch.ml import mlschema as port_mlschema
 from kolibrie_tpu_torch.ml.mlp import MlpNeuralPredicate
 
 from test_ml import DummySk
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 SOFTWARE = "http://kolibrie.tpu/software/"
 ACCURACY = """PREFIX mls: <http://www.w3.org/ns/mls#>

@@ -25,6 +25,7 @@ from kolibrie_tpu_torch.optimizer import plan_interp as port_pi
 from kolibrie_tpu_torch.query import executor as tex
 from test_torch_clauses import pair
 from test_torch_prepared import lower_both
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 P = "PREFIX ex: <http://example.org/>\n"
 

@@ -13,6 +13,7 @@ from kolibrie_tpu.native.join_native import join_indices_native as ref_join
 from kolibrie_tpu_torch import native as port_native
 from kolibrie_tpu_torch.native.join_native import available, gather_native, join_indices_native
 from kolibrie_tpu_torch.ops.join import join_indices
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -42,6 +42,7 @@ from kolibrie_tpu_torch.parallel.sharded_store import partition_rows as port_par
 from kolibrie_tpu_torch.parallel.sharded_store import shard_of as port_shard_of
 from kolibrie_tpu_torch.reasoner.reasoner import Reasoner as PortReasoner
 from torch_train_state import assert_state, carried_state
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 N = 8
 CPU = torch.device("cpu")

@@ -25,6 +25,7 @@ from kolibrie_tpu_torch.optimizer import device_engine as tde
 from kolibrie_tpu_torch.query import executor as tex
 from jax_compile_cache import fresh_jax_compile_cache
 from test_torch_clauses import PREFIXES, employee_db, pair
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(autouse=True)

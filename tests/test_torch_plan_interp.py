@@ -23,6 +23,7 @@ from kolibrie_tpu_torch.optimizer import plan_interp as port_pi
 from kolibrie_tpu_torch.query import executor as tex
 from test_torch_clauses import PREFIXES, employee_db, pair, rdf_star_db
 from test_torch_prepared import graph_pair, lower_both
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 ELIGIBLE = {
     "scan": ("emp", 'SELECT ?e WHERE { ?e ex:dept "dept2" }'),

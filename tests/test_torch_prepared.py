@@ -23,6 +23,7 @@ import pytest
 import kolibrie_tpu_torch as port
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
 from test_torch_clauses import PREFIXES, employee_db, pair, rdf_star_db
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 MOD64 = 1 << 64
 

@@ -16,6 +16,7 @@ from kolibrie_tpu_torch import Reasoner, SparqlDatabase
 from kolibrie_tpu_torch.reasoner import device_provenance as DP
 from kolibrie_tpu_torch.reasoner import provenance_seminaive as PS
 from kolibrie_tpu_torch.reasoner import rule_runtime as RR
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 

@@ -14,6 +14,7 @@ from kolibrie_tpu_torch.reasoner import provenance as tprov
 from kolibrie_tpu_torch.reasoner.provenance_seminaive import infer_with_provenance as t_infer
 from kolibrie_tpu_torch.reasoner.tag_store import TagStore
 from test_torch_device_provenance import carry
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 SCALAR = ("minmax", "addmult", "boolean", "expiration")
 ALL = SCALAR + ("topk", "wmc")

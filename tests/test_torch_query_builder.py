@@ -29,6 +29,7 @@ from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDb
 from kolibrie_tpu_torch.query import error_handler as port_eh
 from kolibrie_tpu_torch.query import parser as port_parser
 from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 TESTS = Path(__file__).resolve().parent
 SKIPPED = {"test_explain_device_plan_tree"}

@@ -29,6 +29,7 @@ from kolibrie_tpu_torch.ops.device_join import set_difference_rows
 from kolibrie_tpu_torch.reasoner import device_fixpoint as tfx
 from kolibrie_tpu_torch.rsp import r2r as tr2r
 from kolibrie_tpu_torch.rsp.s2r import WindowTriple
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 # IDs with bit 31 set and the largest plain ID sit beside small ones
 _ID_POOL = np.array([0, 1, 2, 3, 5, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFD], np.uint32)

@@ -27,6 +27,7 @@ from kolibrie_tpu_torch import Reasoner
 from kolibrie_tpu_torch.core import rule as prule
 from kolibrie_tpu_torch.core import terms as pterms
 from kolibrie_tpu_torch.reasoner import device_fixpoint as tfx
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 # ------------------------------------------------------------------ helpers
 

@@ -25,6 +25,7 @@ from kolibrie_tpu_torch.reasoner import (
 )
 from test_torch_device_provenance import carry
 from test_torch_reasoner import port_pattern, port_rule
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 def _family():

@@ -38,6 +38,7 @@ from kolibrie_tpu_torch.replication.router import RouterCore as PortCore
 from kolibrie_tpu_torch.replication.router import make_router
 from kolibrie_tpu_torch.replication.router import template_affinity_key as port_key
 from serving_pair import free_port, get, post, start, wait_applied, wait_ready
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -69,6 +70,7 @@ def test_wire_frames_are_byte_identical(meta, tail):
     for proto in (ref_protocol, port_protocol):
         a, b = socket.socketpair()
         with a, b:
+            b.settimeout(30)
             proto.send_msg(a, meta, tail)
             a.shutdown(socket.SHUT_WR)
             chunks = []

@@ -27,6 +27,7 @@ import pytest
 
 import kolibrie_tpu_torch as port
 from test_torch_clauses import pair
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PKGS = ("kolibrie_tpu", "kolibrie_tpu_torch")
 

@@ -39,6 +39,7 @@ from kolibrie_tpu_torch.rsp import s2r
 from kolibrie_tpu_torch.rsp.engine import OperationMode
 from kolibrie_tpu_torch.rsp.r2s import Relation2StreamOperator, StreamOperator
 from test_torch_clauses import port_device_program  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 

@@ -27,6 +27,7 @@ from kolibrie_tpu_torch.reasoner.provenance_seminaive import infer_with_provenan
 from kolibrie_tpu_torch.reasoner.sdd_seed import infer_new_facts_with_sdd_seed_specs
 from kolibrie_tpu_torch.reasoner.seed_spec import ExclusiveGroupSeed, IndependentSeed
 from test_torch_device_provenance import carry
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 def _native():

@@ -22,6 +22,7 @@ import time
 import pytest
 
 from serving_pair import get, post, start
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PKGS = {"ref": "kolibrie_tpu", "port": "kolibrie_tpu_torch"}
 

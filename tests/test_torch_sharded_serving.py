@@ -45,7 +45,8 @@ from kolibrie_tpu_torch.query.executor import (
     execute_queries_batched,
     execute_query_volcano,
 )
-from serving_pair import get, post, start
+from serving_pair import get, join_all, post, start
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PREFIX = "PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>\n"
 TEMPLATE = PREFIX + "SELECT ?x ?c WHERE {{ ?x ub:worksFor <{dept}> . ?x ub:teacherOf ?c . }}"
@@ -380,8 +381,7 @@ def test_http_server_with_a_mesh_serves_sharded(pair):
         threads = [threading.Thread(target=client, args=(i,)) for i in range(len(texts))]
         for th in threads:
             th.start()
-        for th in threads:
-            th.join()
+        join_all(threads)
         assert not errors
         for i, t in enumerate(texts):
             assert sorted(map(tuple, answers[i]["data"])) == sorted(map(tuple, ref_execute(t, ref)))

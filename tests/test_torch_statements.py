@@ -25,6 +25,7 @@ from kolibrie_tpu.reasoner import rule_runtime as ref_rules
 from kolibrie_tpu_torch.query import ast as port_ast
 from kolibrie_tpu_torch.query.parser import parse_rule_definition as port_parse_rule
 from kolibrie_tpu_torch.reasoner import rule_runtime as port_rules
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 EX = "PREFIX ex: <http://ex.org/>\n"
 

@@ -16,6 +16,7 @@ import torch
 
 from kolibrie_tpu.core.store import ColumnarTripleStore as RefStore
 from kolibrie_tpu_torch.core.store import ColumnarTripleStore as PortStore
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 ORDERS = ("spo", "pos", "osp", "pso", "ops", "sop")
 

@@ -12,6 +12,7 @@ import kolibrie_tpu_torch as port
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
 from test_torch_clauses import pair, rows
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 
 def test_subquery_fuzz_matches_reference():

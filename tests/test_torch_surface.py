@@ -22,6 +22,7 @@ from benches.lubm import LUBM_Q2, generate_fast
 from kolibrie_tpu.query.executor import execute_query_volcano as ref_execute
 from kolibrie_tpu.query.sparql_database import SparqlDatabase as RefDatabase
 from test_torch_clauses import assert_same_program, pair, plain_run
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 UNIVERSITIES = 3
 EMPLOYEES = 2000

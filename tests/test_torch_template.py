@@ -18,6 +18,7 @@ from kolibrie_tpu.query import template as ref_template
 from kolibrie_tpu.query.parser import parse_combined_query as ref_parse
 from kolibrie_tpu_torch.query import template as port_template
 from kolibrie_tpu_torch.query.parser import parse_combined_query as port_parse
+from torch_threads import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 PREFIXES = {"ex": "http://example.org/", "foaf": "http://xmlns.com/foaf/0.1/"}
 P = "PREFIX ex: <http://example.org/>\nPREFIX foaf: <http://xmlns.com/foaf/0.1/>\n"
