@@ -25,6 +25,33 @@ propagated today.
 Everything is a no-op when :func:`kolibrie_tpu_torch.obs.runtime.enabled`
 is False.
 
+The clock: a span's ``start_s`` is Unix-epoch wall time
+(``time.time()``), the clock ``torch.profiler`` stamps its events on
+(Kineto's timestamps are Unix-epoch nanoseconds), so a span and a
+profiled device interval compare directly; ``portbench/trace.py`` names
+each idle gap of the card by the span open at its middle this way.
+``dur_ms`` is measured on ``time.perf_counter()``.  Moving ``start_s``
+to another clock would break that matching.
+
+Spans the port records beyond the table of ``docs/OBSERVABILITY.md``
+(which describes the reference), with their attributes:
+
+- ``query.decode`` (query/executor): ``format_results``' ID→string
+  decode and row sort; ``rows``, ``path`` (``quoted`` or ``display``).
+- ``device.wait`` (optimizer/device_engine, plan_interp, mqo;
+  reasoner/device_fixpoint): the host blocked on one device→host
+  readback; ``site``, the fetch audit's site name, or ``fixpoint.round``
+  for a fixpoint round's one sync, which the audit does not count.
+- ``reasoner.fixpoint`` (reasoner/device_fixpoint): as in the reference
+  (``facts``), around ``infer`` and ``infer_chunked``, with ``rounds`` and
+  ``derived`` on exit.
+- ``fixpoint.lower``: ``lower_rules`` and the mask bank in
+  ``DeviceFixpoint.__init__``.
+- ``fixpoint.round``: one semi-naive round; ``round``, ``delta_rows``, and
+  on exit ``candidate_rows`` (the candidate blocks' static lengths),
+  ``new_facts``, ``code``.
+- ``fixpoint.writeback``: ``materialize_to_host``; ``rows``.
+
 Copy of ``kolibrie_tpu/obs/spans.py`` for the PyTorch port, its imports
 rewritten.
 """

@@ -68,6 +68,7 @@ cache entry is in the reference).
 from __future__ import annotations
 
 import time as _time
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
@@ -194,13 +195,21 @@ _WCOJ_PROBES = _obs_metrics.counter(
 
 
 # Device→host readback audit: every place the engine forces a transfer
-# calls _note_fetch, so a test can pin the exact per-execute fetch count
-# and show that ``PreparedQuery.run`` / ``run_k`` read nothing back.
+# runs it under _device_wait, so a test can pin the exact per-execute
+# fetch count and show that ``PreparedQuery.run`` / ``run_k`` read
+# nothing back.
 _FETCHES: Dict[str, int] = {}
 
 
-def _note_fetch(site: str) -> None:
+@contextmanager
+def _device_wait(site: str):
+    """One device→host readback at ``site``: counted by the fetch audit
+    and timed as a ``device.wait`` span (the host blocked on the card), so
+    the audit and the span always cover the same sites.  A generator, as
+    the project linter (KL502) wants every span opened by a ``with``."""
     _FETCHES[site] = _FETCHES.get(site, 0) + 1
+    with _obs_span("device.wait", site=site):
+        yield
 
 
 def fetch_counters() -> Dict[str, int]:
@@ -2057,8 +2066,8 @@ class LoweredPlan:
         for _attempt in range(max_attempts):
             out_cols, valid, counts, stats = out
             self._last_stats = stats  # device-resident; fetched on demand
-            counts_h = torch.stack(counts).tolist() if counts else []
-            _note_fetch("converge.counts")
+            with _device_wait("converge.counts"):
+                counts_h = torch.stack(counts).tolist() if counts else []
             overflow = [i for i, c in enumerate(counts_h) if c > self._join_caps[i]]
             if not overflow:
                 self._last_counts = counts_h
@@ -2188,11 +2197,11 @@ class LoweredPlan:
             _sa.stats_advisor.observe(fp, actuals, version=self.db.store.version_key())
 
     def to_table(self, out_cols, valid) -> BindingTable:
-        _note_fetch("to_table")
-        keep = torch.nonzero(valid).squeeze(1)
-        if not out_cols:
-            return {}
-        stacked = torch.stack([c[keep] for c in out_cols]).cpu().numpy()
+        with _device_wait("to_table"):
+            keep = torch.nonzero(valid).squeeze(1)
+            if not out_cols:
+                return {}
+            stacked = torch.stack([c[keep] for c in out_cols]).cpu().numpy()
         return {
             var: stacked[j].astype(np.uint32) for j, var in enumerate(self.out_vars)
         }
@@ -2203,9 +2212,9 @@ class LoweredPlan:
         stats = getattr(self, "_last_stats", None)
         if not stats:
             return {}
-        _note_fetch("analyze.stats")
         keys = list(stats)
-        vals = torch.stack([stats[k].to(torch.int64) for k in keys]).tolist()
+        with _device_wait("analyze.stats"):
+            vals = torch.stack([stats[k].to(torch.int64) for k in keys]).tolist()
         return dict(zip(keys, vals))
 
     def describe(self, counts: Optional[List[int]] = None,
@@ -2715,8 +2724,8 @@ def _execute_plan_batch(lowereds: List[LoweredPlan], max_attempts: int = 12) -> 
         _note_spec("run_plan_batch", spec0)
         n_counts = len(outs[0][2])
         if n_counts:
-            counts_h = torch.stack([torch.stack(o[2]) for o in outs]).tolist()
-            _note_fetch("batch.counts")
+            with _device_wait("batch.counts"):
+                counts_h = torch.stack([torch.stack(o[2]) for o in outs]).tolist()
         else:
             counts_h = [[] for _ in outs]
         caps = lp0._join_caps
@@ -2731,19 +2740,19 @@ def _execute_plan_batch(lowereds: List[LoweredPlan], max_attempts: int = 12) -> 
         raise RuntimeError("batched plan capacities failed to converge")
     cap = _analyze.active()
     if cap is not None:
-        _note_fetch("analyze.batch_stats")
-        for (i, out) in zip(live, outs):
-            stats = out[3]
-            keys = list(stats)
-            vals = torch.stack([stats[k].to(torch.int64) for k in keys]).tolist() if keys else []
-            cap.record("device_batch", member=i, operators=dict(zip(keys, vals)),
-                       caps=list(lp0._join_caps))
+        with _device_wait("analyze.batch_stats"):
+            for (i, out) in zip(live, outs):
+                stats = out[3]
+                keys = list(stats)
+                vals = torch.stack([stats[k].to(torch.int64) for k in keys]).tolist() if keys else []
+                cap.record("device_batch", member=i, operators=dict(zip(keys, vals)),
+                           caps=list(lp0._join_caps))
     # every member's valid rows in one transfer, split by member on the host
     valid_all = torch.stack([o[1] for o in outs])
     cols_all = torch.stack([torch.stack(o[0], 1) for o in outs])
-    sel = torch.nonzero(valid_all)
-    got = torch.cat([sel[:, :1], cols_all[sel[:, 0], sel[:, 1]]], 1).cpu().numpy()
-    _note_fetch("batch.collect")
+    with _device_wait("batch.collect"):
+        sel = torch.nonzero(valid_all)
+        got = torch.cat([sel[:, :1], cols_all[sel[:, 0], sel[:, 1]]], 1).cpu().numpy()
     for b, i in enumerate(live):
         mine = got[got[:, 0] == b]
         results[i] = {
@@ -2962,18 +2971,21 @@ def aggregate_table(db, cols, valid, group_by, agg_items, gpos, funcs, apos) -> 
         gcols, aggs, n_groups = _segment_aggregate(
             cols, valid, numf_dev, tuple(gpos), tuple(funcs), tuple(apos), distincts, cap
         )
-        ng = int(n_groups)
+        with _device_wait("aggregate.groups"):
+            ng = int(n_groups)
         if ng <= cap:
             break
         cap = _round_cap(2 * ng)
     else:
         raise RuntimeError("group capacity failed to converge")
+    with _device_wait("aggregate.collect"):
+        gcols_h = [col[:ng].cpu().numpy() for col in gcols]
+        aggs_h = [arr[:ng].cpu().numpy() for arr in aggs]
     table: BindingTable = {}
-    for g, col in zip(group_by, gcols):
-        table[g] = col[:ng].cpu().numpy().astype(np.uint32)
+    for g, col in zip(group_by, gcols_h):
+        table[g] = col.astype(np.uint32)
     enc = db.dictionary.encode
-    for item, arr in zip(agg_items, aggs):
-        host = arr[:ng].cpu().numpy()
+    for item, host in zip(agg_items, aggs_h):
         if item.agg.func == "SAMPLE":
             # the aggregate IS a term id, not a numeric result
             table[item.agg.alias] = host.astype(np.uint32)
@@ -3138,7 +3150,9 @@ def try_device_execute_ordered(db, q, cache_entry=None) -> Optional[List[List[st
     top_cols, top_valid, _n, nan_seen = _order_limit(
         tuple(out_cols), valid, numf_dev, tuple(opos), tuple(descs), k
     )
-    if bool(nan_seen):
+    with _device_wait("ordered.nan"):
+        nan_seen = bool(nan_seen)
+    if nan_seen:
         # phase 2: a key column holds non-numeric values — the global
         # string ranks (cached per store size), same device columns
         dranks, qranks = device_string_ranks(db)
@@ -3146,7 +3160,8 @@ def try_device_execute_ordered(db, q, cache_entry=None) -> Optional[List[List[st
             tuple(out_cols), valid, numf_dev, tuple(opos), tuple(descs), k, dranks, qranks
         )
     keep = [j for j, v in enumerate(out_vars) if v in sel_vars]
-    stacked = torch.stack([top_cols[j] for j in keep] + [top_valid.to(torch.int64)]).cpu().numpy()
+    with _device_wait("ordered.collect"):
+        stacked = torch.stack([top_cols[j] for j in keep] + [top_valid.to(torch.int64)]).cpu().numpy()
     tv = stacked[-1].astype(bool)
     table: BindingTable = {
         out_vars[j]: stacked[i][tv].astype(np.uint32) for i, j in enumerate(keep)

@@ -428,7 +428,7 @@ def _eval_prefix_device(lowered, pfx: _Prefix) -> Tuple[Optional[dict], bool]:
     import torch
 
     from kolibrie_tpu_torch.optimizer import plan_interp as pi
-    from kolibrie_tpu_torch.optimizer.device_engine import _note_fetch, _round_cap
+    from kolibrie_tpu_torch.optimizer.device_engine import _device_wait, _round_cap
 
     for _attempt in range(12):
         args = lowered.build()[1]
@@ -452,14 +452,14 @@ def _eval_prefix_device(lowered, pfx: _Prefix) -> Tuple[Optional[dict], bool]:
             stat_keys=prog.stat_keys[: pfx.k],
         )
         out_cols, out_valid, counts, _oprows = pi._dispatch(lowered, pprog, args)
-        counts_h = counts[: prog.join_count].tolist()
-        _note_fetch("mqo.counts")
+        with _device_wait("mqo.counts"):
+            counts_h = counts[: prog.join_count].tolist()
         overflow = [i for i, c in enumerate(counts_h) if c > lowered._join_caps[i]]
         if not overflow:
             lowered._store_caps()
-            keep = torch.nonzero(out_valid).squeeze(1)
-            cols_h = out_cols[keep].cpu().numpy()
-            _note_fetch("mqo.collect")
+            with _device_wait("mqo.collect"):
+                keep = torch.nonzero(out_valid).squeeze(1)
+                cols_h = out_cols[keep].cpu().numpy()
             return {
                 v: cols_h[:, prog.var_slots[v]].astype(np.uint32) for v in lowered.out_vars
             }, False

@@ -490,7 +490,7 @@ def interp_execute(lowered, max_attempts: int = 12):
     falls through to the specialized path).  Shares the capacity
     protocol: overflow doubles the template's join caps via
     ``_store_caps``."""
-    from kolibrie_tpu_torch.optimizer.device_engine import _note_fetch, _round_cap
+    from kolibrie_tpu_torch.optimizer.device_engine import _device_wait, _round_cap
 
     if not lowered.const_ok():
         return lowered.empty_table()
@@ -505,14 +505,14 @@ def interp_execute(lowered, max_attempts: int = 12):
         sz = f"{prog.n_ops}x{prog.cap}x{prog.n_slots}"
         with _obs_span("interp.dispatch", size_class=sz):
             out_cols, out_valid, counts, oprows = _dispatch(lowered, prog, args)
-        counts_h = counts[: prog.join_count].tolist()
-        _note_fetch("interp.counts")
+        with _device_wait("interp.counts"):
+            counts_h = counts[: prog.join_count].tolist()
         overflow = [i for i, c in enumerate(counts_h) if c > lowered._join_caps[i]]
         if not overflow:
             lowered._store_caps()
-            keep = torch.nonzero(out_valid).squeeze(1)
-            cols_h = out_cols[keep].cpu().numpy()
-            _note_fetch("interp.collect")
+            with _device_wait("interp.collect"):
+                keep = torch.nonzero(out_valid).squeeze(1)
+                cols_h = out_cols[keep].cpu().numpy()
             nrows = len(cols_h)
             lowered._advise(counts_h, rows=nrows)
             table = {
@@ -523,8 +523,8 @@ def interp_execute(lowered, max_attempts: int = 12):
             _INTERP_LAT.observe(_time.perf_counter() - t0)
             cap = _analyze.active()
             if cap is not None:
-                _note_fetch("analyze.oprows")
-                rows_h = oprows.tolist()
+                with _device_wait("analyze.oprows"):
+                    rows_h = oprows.tolist()
                 operators = {
                     key: int(rows_h[i]) for i, key in enumerate(prog.stat_keys) if key is not None
                 }

@@ -743,56 +743,60 @@ def format_results(db, table: BindingTable, q: SelectQuery, sort_rows: bool = Fa
     n = table_len(table)
     if n == 0 or not header:
         return []
-    id_cols = []
-    any_quoted = False
-    for h in header:
-        col = table.get(h)
-        if col is None:
-            id_cols.append(None)
-            continue
-        ids = np.asarray(col)
-        if (ids & QUOTED_BIT).any():
-            any_quoted = True
-        id_cols.append(ids)
-    if any_quoted:
-        dec = db.decode_term
-        cols = []
-        for ids in id_cols:
-            if ids is None:
-                cols.append([""] * n)
+    # one span over the decode and the row sort, whichever path decodes
+    with span("query.decode", rows=n) as sp:
+        id_cols = []
+        any_quoted = False
+        for h in header:
+            col = table.get(h)
+            if col is None:
+                id_cols.append(None)
                 continue
-            uniq, inv = np.unique(ids, return_inverse=True)
-            decoded = [
-                display_form(dec(int(i))) if i != UNBOUND else "" for i in uniq
-            ]
-            cols.append([decoded[j] for j in inv.tolist()])
-        rows = [list(row) for row in zip(*cols)]
+            ids = np.asarray(col)
+            if (ids & QUOTED_BIT).any():
+                any_quoted = True
+            id_cols.append(ids)
+        if sp is not None:
+            sp.attrs["path"] = "quoted" if any_quoted else "display"
+        if any_quoted:
+            dec = db.decode_term
+            cols = []
+            for ids in id_cols:
+                if ids is None:
+                    cols.append([""] * n)
+                    continue
+                uniq, inv = np.unique(ids, return_inverse=True)
+                decoded = [
+                    display_form(dec(int(i))) if i != UNBOUND else "" for i in uniq
+                ]
+                cols.append([decoded[j] for j in inv.tolist()])
+            rows = [list(row) for row in zip(*cols)]
+            if sort_rows:
+                rows.sort()
+            return rows
+        dict_len, disp = _display_array(db)
+        safe_cols = [
+            None if ids is None else np.where(ids < dict_len, ids, 0) for ids in id_cols
+        ]
         if sort_rows:
-            rows.sort()
-        return rows
-    dict_len, disp = _display_array(db)
-    safe_cols = [
-        None if ids is None else np.where(ids < dict_len, ids, 0) for ids in id_cols
-    ]
-    if sort_rows:
-        ranks = _display_ranks(db, disp, result_rows=n)
-        keys = []
-        for ids in safe_cols:
-            if ids is None:
-                keys.append(np.zeros(n, dtype=np.uint32))
-            elif ranks is not None:
-                keys.append(ranks[ids])
-            else:
-                # dense ranks over just this column's distinct display strings
-                u_ids, inv = np.unique(ids, return_inverse=True)
-                _, u_rank = np.unique(disp[u_ids], return_inverse=True)
-                keys.append(u_rank.astype(np.uint32)[inv])
-        idx = np.lexsort(tuple(reversed(keys)))
-        safe_cols = [None if c is None else c[idx] for c in safe_cols]
-    out = np.empty((n, len(header)), dtype=object)
-    for j, ids in enumerate(safe_cols):
-        out[:, j] = "" if ids is None else disp[ids]
-    return out.tolist()
+            ranks = _display_ranks(db, disp, result_rows=n)
+            keys = []
+            for ids in safe_cols:
+                if ids is None:
+                    keys.append(np.zeros(n, dtype=np.uint32))
+                elif ranks is not None:
+                    keys.append(ranks[ids])
+                else:
+                    # dense ranks over just this column's distinct display strings
+                    u_ids, inv = np.unique(ids, return_inverse=True)
+                    _, u_rank = np.unique(disp[u_ids], return_inverse=True)
+                    keys.append(u_rank.astype(np.uint32)[inv])
+            idx = np.lexsort(tuple(reversed(keys)))
+            safe_cols = [None if c is None else c[idx] for c in safe_cols]
+        out = np.empty((n, len(header)), dtype=object)
+        for j, ids in enumerate(safe_cols):
+            out[:, j] = "" if ids is None else disp[ids]
+        return out.tolist()
 
 
 def execute_select(db, q: SelectQuery, use_optimizer: bool = True, cache_entry=None) -> Rows:

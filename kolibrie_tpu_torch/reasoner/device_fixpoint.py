@@ -50,6 +50,7 @@ import torch
 from kolibrie_tpu_torch.backend import _LPAD, _RPAD, key1, pack2
 from kolibrie_tpu_torch.core.rule import FilterCondition, Rule
 from kolibrie_tpu_torch.obs import metrics as _obs_metrics
+from kolibrie_tpu_torch.obs.spans import span as _obs_span
 from kolibrie_tpu_torch.ops import round_cap as _round_cap
 from kolibrie_tpu_torch.ops.device_join import (
     _row_membership,
@@ -499,9 +500,11 @@ def _fixpoint_round(rules, caps: _Caps, fcols, n_facts: int, dcols, dvalid, mask
     """One semi-naive round (the reference's ``round_body``) over the facts
     ``fcols[:n_facts]`` and the delta ``dcols`` (rows where ``dvalid``).
     Queues the round's device work and reads ONE host scalar pair: returns
-    ``(n_uniq, code, (us, up, uo), uvalid)`` — the new distinct facts
-    (sorted, compacted, up to ``caps.delta``), their exact count and the
-    overflow bitmask.  Nothing is written: the caller commits on code 0."""
+    ``(n_uniq, code, (us, up, uo), uvalid, n_cand)`` — the new distinct
+    facts (sorted, compacted, up to ``caps.delta``), their exact count, the
+    overflow bitmask and the candidate rows the round put through the
+    dedup (the candidate blocks' static lengths, host-known).  Nothing is
+    written: the caller commits on code 0."""
     F, D, J = caps.fact, caps.delta, caps.join
     fvalid = torch.arange(F, device=dvalid.device) < n_facts
     cs, cp, co, cv, overflow = _gen_candidates(
@@ -516,8 +519,9 @@ def _fixpoint_round(rules, caps: _Caps, fcols, n_facts: int, dcols, dvalid, mask
     ucols, uvalid, n_uniq = _sort_unique3((cs, cp, co), cv, D)
     overflow = overflow | (n_uniq > D).to(torch.int64) << 1
     overflow = overflow | (n_facts + n_uniq.clamp(max=D) > F).to(torch.int64) << 2
-    n_uniq_h, code = torch.stack([n_uniq, overflow]).tolist()  # the one sync
-    return n_uniq_h, code, ucols, uvalid
+    with _obs_span("device.wait", site="fixpoint.round"):
+        n_uniq_h, code = torch.stack([n_uniq, overflow]).tolist()  # the one sync
+    return n_uniq_h, code, ucols, uvalid, cs.shape[0]
 
 
 def _device_fixpoint(rules: tuple, caps: _Caps, fs, fp, fo, n_facts: int, masks):
@@ -543,18 +547,22 @@ def _device_fixpoint(rules: tuple, caps: _Caps, fs, fp, fo, n_facts: int, masks)
     dvalid = torch.arange(D, device=dev) < min(n_facts, D)
     code = 2 if n_facts > D else 0  # bit1: the delta cannot hold all facts
     n_new = min(n_facts, 1)
+    n_delta = min(n_facts, D)
     rounds = 0
     while n_new > 0 and code == 0 and rounds < ROUND_LIMIT:
-        n_uniq, code, ucols, uvalid = _fixpoint_round(
-            rules, caps, (fs, fp, fo), n_facts, dcols, dvalid, masks
-        )
-        if code:
-            break
-        n_new = min(n_uniq, D)
-        for col, new in zip((fs, fp, fo), ucols):
-            col[n_facts : n_facts + n_new] = new[:n_new]
+        with _obs_span("fixpoint.round", round=rounds, delta_rows=n_delta) as sp:
+            n_uniq, code, ucols, uvalid, n_cand = _fixpoint_round(
+                rules, caps, (fs, fp, fo), n_facts, dcols, dvalid, masks
+            )
+            if sp is not None:
+                sp.attrs.update(candidate_rows=n_cand, new_facts=n_uniq, code=code)
+            if code:
+                break
+            n_new = min(n_uniq, D)
+            for col, new in zip((fs, fp, fo), ucols):
+                col[n_facts : n_facts + n_new] = new[:n_new]
         n_facts += n_new
-        dcols, dvalid = ucols, uvalid
+        dcols, dvalid, n_delta = ucols, uvalid, n_new
         rounds += 1
     if rounds >= ROUND_LIMIT and n_new > 0:
         # an incomplete closure must never be reported as success
@@ -589,10 +597,11 @@ def _device_round_chunk(
     merges the accumulator into the fact columns at round end and feeds it
     back as the next round's delta.  ``n_acc`` and the returned overflow
     code are 0-dim device tensors, so chunks chain without a host sync.
-    Returns ``(accs, accp, acco, n_acc, overflow)``, the accumulator updated
-    IN PLACE; an overflowing chunk does NOT commit (bit0 join cap, bit1
-    accumulator cap), so the caller can double the failing capacity and
-    re-run the round."""
+    Returns ``(accs, accp, acco, n_acc, overflow, n_cand)``, the accumulator
+    updated IN PLACE and the chunk's candidate rows (host-known, as in
+    :func:`_fixpoint_round`); an overflowing chunk does NOT commit (bit0
+    join cap, bit1 accumulator cap), so the caller can double the failing
+    capacity and re-run the round."""
     F, D, J = caps.fact, caps.delta, caps.join
     dev = fs.device
     fvalid = torch.arange(F, device=dev) < n_facts
@@ -619,7 +628,7 @@ def _device_round_chunk(
     dest = torch.where(uvalid & ok, n_acc + torch.cumsum(uvalid, 0) - 1, D)
     for acc, new in zip((accs, accp, acco), (us, up, uo)):
         acc.index_put_((dest,), new)  # slot D takes the dropped rows
-    return accs, accp, acco, torch.where(ok, n_acc + n_u, n_acc), overflow
+    return accs, accp, acco, torch.where(ok, n_acc + n_u, n_acc), overflow, cs.shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +654,8 @@ class DeviceFixpoint:
     def __init__(self, reasoner):
         self.reasoner = reasoner
         self.device: torch.device = reasoner.device
-        self.rules, self.bank = lower_rules(reasoner, reasoner.rules)
+        with _obs_span("fixpoint.lower"):
+            self.rules, self.bank = lower_rules(reasoner, reasoner.rules)
         # rounds taken by the most recent successful run
         self.last_rounds = 0
 
@@ -720,6 +730,15 @@ class DeviceFixpoint:
         raise RuntimeError("device fixpoint capacities failed to converge")
 
     def infer(self) -> int:
+        """The fixpoint with its capacity retries, written back into
+        ``reasoner.facts``; returns the derived count.  One
+        ``reasoner.fixpoint`` span (attrs: facts; on exit rounds, derived)
+        holds the run's ``fixpoint.round`` and ``fixpoint.writeback``
+        spans (the constructor's ``fixpoint.lower`` precedes it)."""
+        with _obs_span("reasoner.fixpoint", facts=len(self.reasoner.facts)) as sp:
+            return self._infer(sp)
+
+    def _infer(self, sp) -> int:
         r = self.reasoner
         s, p, o = r.facts.columns()
         n0 = len(s)
@@ -733,6 +752,8 @@ class DeviceFixpoint:
         self._last_state = (ofs, ofp, ofo, n_out, n0)
         derived = self.materialize_to_host()
         _FIXPOINT_DERIVED.observe(derived)
+        if sp is not None:
+            sp.attrs.update(rounds=self.last_rounds, derived=derived)
         return derived
 
     def infer_chunked(
@@ -747,7 +768,13 @@ class DeviceFixpoint:
         slice of the delta, with the fact columns frozen for the round; the
         host merges the round's accumulator into the facts and feeds it
         back as the next delta.  One host sync per round attempt.  Bounds
-        every join buffer by the chunk rather than by the whole delta."""
+        every join buffer by the chunk rather than by the whole delta.
+        Spans as :meth:`infer`'s, one ``fixpoint.round`` a round with its
+        capacity retries."""
+        with _obs_span("reasoner.fixpoint", facts=len(self.reasoner.facts)) as sp:
+            return self._infer_chunked(sp, chunk_rows, join_cap, delta_cap)
+
+    def _infer_chunked(self, sp, chunk_rows, join_cap, delta_cap) -> int:
         r = self.reasoner
         s, p, o = r.facts.columns()
         n0 = len(s)
@@ -772,58 +799,64 @@ class DeviceFixpoint:
 
         for _round in range(ROUND_LIMIT):
             _FIXPOINT_DELTA.observe(n_delta)
-            while True:
-                # accumulator: D rows + the spare slot of dropped rows
-                accs, accp, acco = (
-                    torch.zeros(D + 1, dtype=torch.int64, device=dev) for _ in range(3)
-                )
-                n_acc_dev = torch.zeros((), dtype=torch.int64, device=dev)
-                code_dev = torch.zeros((), dtype=torch.int64, device=dev)
-                for off in range(0, n_delta, Dc):
-                    m = min(Dc, n_delta - off)
-                    accs, accp, acco, n_acc_dev, ovf = _device_round_chunk(
-                        self.rules,
-                        _Caps(F, D, J),
-                        fs,
-                        fp,
-                        fo,
-                        n_facts,
-                        dels[off : off + Dc],
-                        delp[off : off + Dc],
-                        delo[off : off + Dc],
-                        m,
-                        accs,
-                        accp,
-                        acco,
-                        n_acc_dev,
-                        masks,
+            with _obs_span("fixpoint.round", round=_round, delta_rows=n_delta) as rsp:
+                n_cand = 0
+                while True:
+                    # accumulator: D rows + the spare slot of dropped rows
+                    accs, accp, acco = (
+                        torch.zeros(D + 1, dtype=torch.int64, device=dev) for _ in range(3)
                     )
-                    code_dev = code_dev | ovf
-                code, n_acc = torch.stack([code_dev, n_acc_dev]).tolist()  # the one sync
-                if code == 0:
+                    n_acc_dev = torch.zeros((), dtype=torch.int64, device=dev)
+                    code_dev = torch.zeros((), dtype=torch.int64, device=dev)
+                    for off in range(0, n_delta, Dc):
+                        m = min(Dc, n_delta - off)
+                        accs, accp, acco, n_acc_dev, ovf, rows = _device_round_chunk(
+                            self.rules,
+                            _Caps(F, D, J),
+                            fs,
+                            fp,
+                            fo,
+                            n_facts,
+                            dels[off : off + Dc],
+                            delp[off : off + Dc],
+                            delo[off : off + Dc],
+                            m,
+                            accs,
+                            accp,
+                            acco,
+                            n_acc_dev,
+                            masks,
+                        )
+                        code_dev = code_dev | ovf
+                        n_cand += rows
+                    with _obs_span("device.wait", site="fixpoint.round"):
+                        code, n_acc = torch.stack([code_dev, n_acc_dev]).tolist()  # the one sync
+                    if code == 0:
+                        break
+                    # overflow: retry the WHOLE round (facts are frozen per
+                    # round, so a round restart is exact) with the failing
+                    # capacities doubled
+                    attempts += 1
+                    if attempts > MAX_CHUNKED_ATTEMPTS:
+                        raise RuntimeError(
+                            "chunked device fixpoint: capacities failed to converge"
+                        )
+                    if code & 1:
+                        J *= 2
+                    if code & 2:
+                        D *= 2
+                if rsp is not None:
+                    rsp.attrs.update(candidate_rows=n_cand, new_facts=n_acc, code=code)
+                if n_acc == 0:
                     break
-                # overflow: retry the WHOLE round (facts are frozen per
-                # round, so a round restart is exact) with the failing
-                # capacities doubled
-                attempts += 1
-                if attempts > MAX_CHUNKED_ATTEMPTS:
-                    raise RuntimeError(
-                        "chunked device fixpoint: capacities failed to converge"
-                    )
-                if code & 1:
-                    J *= 2
-                if code & 2:
-                    D *= 2
-            if n_acc == 0:
-                break
-            # merge the round's accumulator into the fact columns
-            if n_facts + D > F:
-                newF = _round_cap(n_facts + D, 2048)
-                fs, fp, fo = (self._padded(c, newF) for c in (fs, fp, fo))
-                F = newF
-            for col, acc in zip((fs, fp, fo), (accs, accp, acco)):
-                col[n_facts : n_facts + n_acc] = acc[:n_acc]
-            n_facts += n_acc
+                # merge the round's accumulator into the fact columns
+                if n_facts + D > F:
+                    newF = _round_cap(n_facts + D, 2048)
+                    fs, fp, fo = (self._padded(c, newF) for c in (fs, fp, fo))
+                    F = newF
+                for col, acc in zip((fs, fp, fo), (accs, accp, acco)):
+                    col[n_facts : n_facts + n_acc] = acc[:n_acc]
+                n_facts += n_acc
             # next round's delta = this round's accumulator (D is a power
             # of two >= Dc, so it stays chunk-aligned)
             dels, delp, delo, n_delta = accs[:D], accp[:D], acco[:D], n_acc
@@ -834,16 +867,20 @@ class DeviceFixpoint:
         _FIXPOINT_ROUNDS.observe(_round)
         self.converged_caps = _Caps(F, D, J)
         self._last_state = (fs, fp, fo, n_facts, n0)
-        return self.materialize_to_host()
+        derived = self.materialize_to_host()
+        if sp is not None:
+            sp.attrs.update(rounds=self.last_rounds, derived=derived)
+        return derived
 
     def materialize_to_host(self) -> int:
         """Copy the facts derived by the last run into ``reasoner.facts``;
         returns the derived count."""
         fs, fp, fo, n_facts, n0 = self._last_state
-        if n_facts > n0:
-            self.reasoner.facts.add_batch(
-                *(_to_host_u32(c[n0:n_facts]) for c in (fs, fp, fo))
-            )
+        with _obs_span("fixpoint.writeback", rows=n_facts - n0):
+            if n_facts > n0:
+                self.reasoner.facts.add_batch(
+                    *(_to_host_u32(c[n0:n_facts]) for c in (fs, fp, fo))
+                )
         return n_facts - n0
 
 
