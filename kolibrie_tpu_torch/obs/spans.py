@@ -48,8 +48,15 @@ Spans the port records beyond the table of ``docs/OBSERVABILITY.md``
 - ``fixpoint.lower``: ``lower_rules`` and the mask bank in
   ``DeviceFixpoint.__init__``.
 - ``fixpoint.round``: one semi-naive round; ``round``, ``delta_rows``, and
-  on exit ``candidate_rows`` (the candidate blocks' static lengths),
-  ``new_facts``, ``code``.
+  on exit ``candidate_rows`` (the compacted candidate rows the round puts
+  through its dedup, the candidate capacity), ``block_rows`` (the
+  candidate blocks' static lengths), ``candidate_valid`` (the live
+  candidate rows among them, read in the round's one sync),
+  ``new_facts``, ``code`` (the overflow bits; bit4, 16, the candidate
+  capacity).  ``infer``'s round that overflows does not commit and is
+  retried under a span of its own; ``infer_chunked`` retries a round
+  inside its span, whose ``code`` holds the bits of every attempt and
+  whose row counts sum them.
 - ``fixpoint.writeback``: ``materialize_to_host``; ``rows``.
 
 Copy of ``kolibrie_tpu/obs/spans.py`` for the PyTorch port, its imports

@@ -10,8 +10,14 @@ against the known facts, fact append.
 The reference runs the whole fixpoint as ONE XLA dispatch (a
 ``lax.while_loop`` whose body is one round).  PyTorch runs eagerly, so the
 loop is a host loop of rounds; each round queues its device work and the
-host reads ONE scalar pair per round (the new-fact count and the overflow
-code together), which both ends the loop and commits the round.
+host reads ONE scalar triple per round (the new-fact count, the overflow
+code and the live candidate count together), which both ends the loop and
+commits the round.
+
+Each plan's candidate block is compacted to its live rows as it is
+produced, into one shared buffer of the round's candidate capacity, so
+the known-fact membership test and the sort-unique run over candidates
+and not over the blocks' static capacities.
 
 Parity: ``datalog/src/reasoning/materialisation/semi_naive_parallel.rs:11-177``
 — the rayon delta fan-out becomes whole-column joins; ``semi_naive.rs:22-59``
@@ -22,7 +28,7 @@ that would overflow any capacity does NOT commit (the loop stops with the
 pre-round state and an overflow code); the host side doubles the failing
 capacity and re-enters the loop from the preserved state.  The overflow
 code is a bitmask: bit0 join cap, bit1 delta cap, bit2 fact cap, bit3 round
-limit reached with work remaining.
+limit reached with work remaining, bit4 (16) compacted candidate cap.
 
 GROUND quoted (RDF-star) terms lower to their qid constants — premises
 against never-interned triples become never-match scans, quoted
@@ -370,12 +376,18 @@ class _Caps:
     fact: int
     delta: int
     join: int  # one shared capacity for all intermediate joins
+    # a round's compacted candidate rows; every driver of the rounds sets
+    # it, and the default only keeps the provenance fixpoint's three-field
+    # calls valid (its rounds never read it)
+    cand: int = 0
 
 
 ROUND_LIMIT = 10_000  # runaway-rule backstop, far above any real closure
 # capacity-doubling runs before the one-run and chunked drivers give up
 MAX_ATTEMPTS = 12
 MAX_CHUNKED_ATTEMPTS = 64
+# the fixpoint.round span's candidate counts, in the order rounds return them
+_ROW_ATTRS = ("candidate_rows", "block_rows", "candidate_valid")
 _KNOWN_PAD = 0xFFFFFFFE  # candidate rows masked out of a membership probe
 _FACT_PAD = 0xFFFFFFFF  # fact rows masked out of a membership probe
 
@@ -435,18 +447,43 @@ def _eval_negs(rule, table, valid, facts):
     return valid
 
 
-def _gen_candidates(rules, fcols, fvalid, dcols, dvalid, masks, J):
+def _block_rows(rules, seed_rows: int, J: int) -> int:
+    """The static rows of a round's candidate blocks: a one-premise plan's
+    block is the seed buffer's length, a join plan's the join capacity,
+    once a conclusion."""
+    return sum(
+        len(rule.concls) * (seed_rows if len(order) == 1 else J)
+        for rule in rules
+        for order, _keys in rule.plans
+    )
+
+
+def _gen_candidates(rules, fcols, fvalid, dcols, dvalid, masks, J, C):
     """Candidate conclusions of one semi-naive round: delta-seeded premise
-    joins + filters + NAF over a FROZEN fact snapshot, as static-cap column
-    blocks.  Shared by the fixpoint's rounds and the per-round chunk
-    (:func:`_device_round_chunk`).  Premise joins always go through
-    ``ranked_merge_join_indices``.  Returns ``(cs, cp, co, cv, overflow)``
-    with ``overflow`` a 0-dim int64 device tensor (bit0: a join overflowed
-    ``J``)."""
+    joins + filters + NAF over a FROZEN fact snapshot.  Shared by the
+    fixpoint's rounds and the per-round chunk (:func:`_device_round_chunk`).
+    Premise joins always go through ``ranked_merge_join_indices``.
+
+    Each plan's conclusion rows are compacted as they are produced: the
+    live rows go, at a device-side running offset, into the first ``C``
+    rows of shared (s, p, o) buffers.  The rows after ``C`` take what
+    is dropped: a block's ``i``-th row, if not live, goes to row ``C + i``
+    (the scatter's writes spread, where one spare row would take them all
+    at one address), and live rows past ``C`` to row ``C``.  The order of
+    the candidates is immaterial, since the round's dedup sorts them.
+
+    Returns ``(cs, cp, co, cv, overflow, n_live, n_block)``: the ``C``-row
+    compacted columns and their validity, the overflow code as a 0-dim
+    int64 device tensor (bit0: a join overflowed ``J``; bit4: the live
+    rows overflowed ``C``), the live rows' exact count (0-dim, uncapped)
+    and the blocks' static total (host int)."""
     dev = fvalid.device
     facts = (*fcols, fvalid)
+    n_block = _block_rows(rules, dvalid.shape[0], J)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    cand_parts: List[tuple] = []  # (s, p, o, valid) static-cap blocks
+    n_live = torch.zeros((), dtype=torch.int64, device=dev)
+    spill = torch.arange(C, C + max(dvalid.shape[0], J), device=dev)
+    cand = [torch.zeros(spill.shape[0] + C, dtype=torch.int64, device=dev) for _ in range(3)]
 
     for rule in rules:
         # ground-guard gate: a whole-rule membership test against the fact
@@ -480,35 +517,40 @@ def _gen_candidates(rules, fcols, fvalid, dcols, dvalid, masks, J):
                 table, valid = new_table, jvalid
             valid = _eval_filters(rule, table, valid, masks)
             valid = _eval_negs(rule, table, valid, facts)
-            n = valid.shape[0]
+            rank = torch.cumsum(valid, 0)
+            live = valid.sum()
             for concl in rule.concls:
-                out = [
-                    table[v] if kind == "var"
-                    else torch.full((n,), v, dtype=torch.int64, device=dev)
-                    for kind, v in concl
-                ]
-                cand_parts.append((out[0], out[1], out[2], valid))
+                dest = torch.where(
+                    valid, (rank + (n_live - 1)).clamp_(max=C), spill[: valid.shape[0]]
+                )
+                for buf, (kind, v) in zip(cand, concl):
+                    if kind == "var":
+                        buf.index_put_((dest,), table[v])
+                    else:
+                        buf.index_fill_(0, dest, v)
+                n_live = n_live + live
 
-    cs = torch.cat([p[0] for p in cand_parts])
-    cp = torch.cat([p[1] for p in cand_parts])
-    co = torch.cat([p[2] for p in cand_parts])
-    cv = torch.cat([p[3] for p in cand_parts])
-    return cs, cp, co, cv, overflow
+    overflow = overflow | (n_live > C).to(torch.int64) << 4
+    cv = torch.arange(C, device=dev) < n_live.clamp(max=C)
+    cs, cp, co = (c[:C] for c in cand)
+    return cs, cp, co, cv, overflow, n_live, n_block
 
 
 def _fixpoint_round(rules, caps: _Caps, fcols, n_facts: int, dcols, dvalid, masks):
     """One semi-naive round (the reference's ``round_body``) over the facts
     ``fcols[:n_facts]`` and the delta ``dcols`` (rows where ``dvalid``).
-    Queues the round's device work and reads ONE host scalar pair: returns
-    ``(n_uniq, code, (us, up, uo), uvalid, n_cand)`` — the new distinct
-    facts (sorted, compacted, up to ``caps.delta``), their exact count, the
-    overflow bitmask and the candidate rows the round put through the
-    dedup (the candidate blocks' static lengths, host-known).  Nothing is
+    Queues the round's device work and reads ONE host scalar triple:
+    returns ``(n_uniq, code, (us, up, uo), uvalid, rows)`` — the new
+    distinct facts (sorted, compacted, up to ``caps.delta``), their exact
+    count, the overflow bitmask, and ``rows``, the round's candidate
+    counts as host ints: ``(candidate_rows, block_rows, candidate_valid)``,
+    the compacted rows it put through the dedup, the candidate blocks'
+    static lengths and the live candidates among them.  Nothing is
     written: the caller commits on code 0."""
     F, D, J = caps.fact, caps.delta, caps.join
     fvalid = torch.arange(F, device=dvalid.device) < n_facts
-    cs, cp, co, cv, overflow = _gen_candidates(
-        rules, fcols, fvalid, dcols, dvalid, masks, J
+    cs, cp, co, cv, overflow, n_live, n_block = _gen_candidates(
+        rules, fcols, fvalid, dcols, dvalid, masks, J, caps.cand
     )
     # dedup + subtract known facts (fused membership: rank (s,p), pack o)
     known = _row_membership(
@@ -520,8 +562,9 @@ def _fixpoint_round(rules, caps: _Caps, fcols, n_facts: int, dcols, dvalid, mask
     overflow = overflow | (n_uniq > D).to(torch.int64) << 1
     overflow = overflow | (n_facts + n_uniq.clamp(max=D) > F).to(torch.int64) << 2
     with _obs_span("device.wait", site="fixpoint.round"):
-        n_uniq_h, code = torch.stack([n_uniq, overflow]).tolist()  # the one sync
-    return n_uniq_h, code, ucols, uvalid, cs.shape[0]
+        # the one sync
+        n_uniq_h, code, n_live_h = torch.stack([n_uniq, overflow, n_live]).tolist()
+    return n_uniq_h, code, ucols, uvalid, (cs.shape[0], n_block, n_live_h)
 
 
 def _device_fixpoint(rules: tuple, caps: _Caps, fs, fp, fo, n_facts: int, masks):
@@ -551,11 +594,11 @@ def _device_fixpoint(rules: tuple, caps: _Caps, fs, fp, fo, n_facts: int, masks)
     rounds = 0
     while n_new > 0 and code == 0 and rounds < ROUND_LIMIT:
         with _obs_span("fixpoint.round", round=rounds, delta_rows=n_delta) as sp:
-            n_uniq, code, ucols, uvalid, n_cand = _fixpoint_round(
+            n_uniq, code, ucols, uvalid, rows = _fixpoint_round(
                 rules, caps, (fs, fp, fo), n_facts, dcols, dvalid, masks
             )
             if sp is not None:
-                sp.attrs.update(candidate_rows=n_cand, new_facts=n_uniq, code=code)
+                sp.attrs.update(zip(_ROW_ATTRS, rows), new_facts=n_uniq, code=code)
             if code:
                 break
             n_new = min(n_uniq, D)
@@ -597,18 +640,20 @@ def _device_round_chunk(
     merges the accumulator into the fact columns at round end and feeds it
     back as the next round's delta.  ``n_acc`` and the returned overflow
     code are 0-dim device tensors, so chunks chain without a host sync.
-    Returns ``(accs, accp, acco, n_acc, overflow, n_cand)``, the accumulator
-    updated IN PLACE and the chunk's candidate rows (host-known, as in
-    :func:`_fixpoint_round`); an overflowing chunk does NOT commit (bit0
-    join cap, bit1 accumulator cap), so the caller can double the failing
-    capacity and re-run the round."""
+    Returns ``(accs, accp, acco, n_acc, overflow, rows)``, the accumulator
+    updated IN PLACE and the chunk's candidate counts ``(candidate_rows,
+    block_rows, n_live)``: host ints but for the live count, a 0-dim
+    device tensor (as in :func:`_fixpoint_round`); an overflowing chunk
+    does NOT commit (bit0 join cap, bit1 accumulator cap, bit4 candidate
+    cap), so the caller can double the failing capacity and re-run the
+    round."""
     F, D, J = caps.fact, caps.delta, caps.join
     dev = fs.device
     fvalid = torch.arange(F, device=dev) < n_facts
     dvalid = torch.arange(ds.shape[0], device=dev) < n_delta
 
-    cs, cp, co, cv, overflow = _gen_candidates(
-        rules, (fs, fp, fo), fvalid, (ds, dp, do), dvalid, masks, J
+    cs, cp, co, cv, overflow, n_live, n_block = _gen_candidates(
+        rules, (fs, fp, fo), fvalid, (ds, dp, do), dvalid, masks, J, caps.cand
     )
     # subtract known facts AND rows already accumulated by earlier chunks
     ours = [torch.where(cv, c, _KNOWN_PAD) for c in (cs, cp, co)]
@@ -628,7 +673,8 @@ def _device_round_chunk(
     dest = torch.where(uvalid & ok, n_acc + torch.cumsum(uvalid, 0) - 1, D)
     for acc, new in zip((accs, accp, acco), (us, up, uo)):
         acc.index_put_((dest,), new)  # slot D takes the dropped rows
-    return accs, accp, acco, torch.where(ok, n_acc + n_u, n_acc), overflow, cs.shape[0]
+    n_acc = torch.where(ok, n_acc + n_u, n_acc)
+    return accs, accp, acco, n_acc, overflow, (cs.shape[0], n_block, n_live)
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +710,7 @@ class DeviceFixpoint:
             fact=_round_cap(8 * n_facts, 2048),
             delta=_round_cap(max(2 * n_facts, 1024)),
             join=_round_cap(4 * n_facts, 1024),
+            cand=_round_cap(4 * n_facts, 1024),
         )
 
     def _masks(self) -> tuple:
@@ -726,6 +773,7 @@ class DeviceFixpoint:
                 caps.fact * (2 if code & 4 else 1),
                 caps.delta * (2 if code & 2 else 1),
                 caps.join * (2 if code & 1 else 1),
+                caps.cand * (2 if code & 16 else 1),
             )
         raise RuntimeError("device fixpoint capacities failed to converge")
 
@@ -769,8 +817,10 @@ class DeviceFixpoint:
         host merges the round's accumulator into the facts and feeds it
         back as the next delta.  One host sync per round attempt.  Bounds
         every join buffer by the chunk rather than by the whole delta.
-        Spans as :meth:`infer`'s, one ``fixpoint.round`` a round with its
-        capacity retries."""
+        A chunk's compacted candidate capacity starts at the join
+        capacity's first value and doubles on its own overflow.  Spans as
+        :meth:`infer`'s, one ``fixpoint.round`` a round with its capacity
+        retries."""
         with _obs_span("reasoner.fixpoint", facts=len(self.reasoner.facts)) as sp:
             return self._infer_chunked(sp, chunk_rows, join_cap, delta_cap)
 
@@ -785,7 +835,7 @@ class DeviceFixpoint:
         # all powers of two (user values rounded up), so chunk offsets stay
         # aligned across buffers
         Dc = _round_cap(chunk_rows, 8) if chunk_rows else min(_round_cap(n0, 1024), 1 << 19)
-        J = join_cap or _round_cap(4 * max(Dc, 1024), 1024)
+        J = C = join_cap or _round_cap(4 * max(Dc, 1024), 1024)
         D = _round_cap(max(delta_cap, Dc) if delta_cap else max(2 * Dc, 2048), Dc)
         F = _round_cap(n0 + D, 2048)
         attempts = 0
@@ -800,7 +850,7 @@ class DeviceFixpoint:
         for _round in range(ROUND_LIMIT):
             _FIXPOINT_DELTA.observe(n_delta)
             with _obs_span("fixpoint.round", round=_round, delta_rows=n_delta) as rsp:
-                n_cand = 0
+                n_cand = n_block = n_live = codes = 0
                 while True:
                     # accumulator: D rows + the spare slot of dropped rows
                     accs, accp, acco = (
@@ -808,11 +858,12 @@ class DeviceFixpoint:
                     )
                     n_acc_dev = torch.zeros((), dtype=torch.int64, device=dev)
                     code_dev = torch.zeros((), dtype=torch.int64, device=dev)
+                    live_dev = torch.zeros((), dtype=torch.int64, device=dev)
                     for off in range(0, n_delta, Dc):
                         m = min(Dc, n_delta - off)
                         accs, accp, acco, n_acc_dev, ovf, rows = _device_round_chunk(
                             self.rules,
-                            _Caps(F, D, J),
+                            _Caps(F, D, J, C),
                             fs,
                             fp,
                             fo,
@@ -828,9 +879,14 @@ class DeviceFixpoint:
                             masks,
                         )
                         code_dev = code_dev | ovf
-                        n_cand += rows
+                        n_cand += rows[0]
+                        n_block += rows[1]
+                        live_dev = live_dev + rows[2]
                     with _obs_span("device.wait", site="fixpoint.round"):
-                        code, n_acc = torch.stack([code_dev, n_acc_dev]).tolist()  # the one sync
+                        # the one sync
+                        code, n_acc, live = torch.stack([code_dev, n_acc_dev, live_dev]).tolist()
+                    n_live += live
+                    codes |= code
                     if code == 0:
                         break
                     # overflow: retry the WHOLE round (facts are frozen per
@@ -845,8 +901,12 @@ class DeviceFixpoint:
                         J *= 2
                     if code & 2:
                         D *= 2
+                    if code & 16:
+                        C *= 2
                 if rsp is not None:
-                    rsp.attrs.update(candidate_rows=n_cand, new_facts=n_acc, code=code)
+                    # the round's retries show in the bits of its attempts
+                    rsp.attrs.update(zip(_ROW_ATTRS, (n_cand, n_block, n_live)),
+                                     new_facts=n_acc, code=codes)
                 if n_acc == 0:
                     break
                 # merge the round's accumulator into the fact columns
@@ -865,7 +925,7 @@ class DeviceFixpoint:
 
         self.last_rounds = _round  # productive rounds (final is empty)
         _FIXPOINT_ROUNDS.observe(_round)
-        self.converged_caps = _Caps(F, D, J)
+        self.converged_caps = _Caps(F, D, J, C)
         self._last_state = (fs, fp, fo, n_facts, n0)
         derived = self.materialize_to_host()
         if sp is not None:

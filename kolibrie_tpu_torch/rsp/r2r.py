@@ -316,7 +316,12 @@ class DeviceR2R(SimpleR2R):
         caps = (
             want
             if c is None
-            else _Caps(max(c.fact, want.fact), max(c.delta, want.delta), max(c.join, want.join))
+            else _Caps(
+                max(c.fact, want.fact),
+                max(c.delta, want.delta),
+                max(c.join, want.join),
+                max(c.cand, want.cand),
+            )
         )
         fs, fp, fo = self._mir
         ofs, ofp, ofo, n_out, caps = fx.infer_padded(fs, fp, fo, n0, caps)

@@ -138,8 +138,9 @@ def _reasoner(n=40):
 
 
 def _block_rows(fx, caps):
-    """Candidate rows a round: each plan's block is the delta's capacity
-    for a one-premise rule and the join's for a join, once a conclusion."""
+    """The candidate blocks' static rows a round (``block_rows``): each
+    plan's block is the delta's capacity for a one-premise rule and the
+    join's for a join, once a conclusion."""
     return sum((caps.delta if len(order) == 1 else caps.join) * len(rule.concls)
                for rule in fx.rules for order, _keys in rule.plans)
 
@@ -166,7 +167,15 @@ def test_fixpoint_span_tree_and_candidate_rows():
     rounds = [k for k in kids[entry["span_id"]] if k["name"] == "fixpoint.round"]
     per_round = _block_rows(fx, fx.converged_caps)
     assert [x["attrs"]["round"] for x in rounds] == list(range(fx.last_rounds))
-    assert all(x["attrs"]["candidate_rows"] == per_round for x in rounds)
+    # the dedup takes the compacted candidates, not the blocks they came from
+    assert fx.converged_caps.cand < per_round
+    assert all(x["attrs"]["candidate_rows"] == fx.converged_caps.cand for x in rounds)
+    assert all(x["attrs"]["block_rows"] == per_round for x in rounds)
+    # every new fact is a live candidate; the last round derives nothing
+    for x in rounds:
+        a = x["attrs"]
+        assert a["new_facts"] <= a["candidate_valid"] <= a["candidate_rows"]
+    assert all(x["attrs"]["candidate_valid"] > 0 for x in rounds[:-1])
     assert all(x["attrs"]["code"] == 0 for x in rounds)
     assert sum(x["attrs"]["new_facts"] for x in rounds) == derived
     assert rounds[0]["attrs"]["delta_rows"] == 80

@@ -13,6 +13,7 @@ propagate: the port never reruns a firing on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from kolibrie_tpu.rsp import r2r as jr2r
 from kolibrie_tpu.rsp.s2r import WindowTriple as JaxWindowTriple
 from kolibrie_tpu_torch.core.rule import Rule
 from kolibrie_tpu_torch.core.terms import Term, TriplePattern
+from kolibrie_tpu_torch.obs import spans
 from kolibrie_tpu_torch.ops.device_join import set_difference_rows
 from kolibrie_tpu_torch.reasoner import device_fixpoint as tfx
 from kolibrie_tpu_torch.rsp import r2r as tr2r
@@ -251,6 +253,37 @@ def _bad_rule(r):
         filters=[],
         conclusion=[TriplePattern(Term.variable("a"), Term.constant(p), Term.variable("z"))],
     )
+
+
+def test_caps_cache_carries_the_candidate_capacity(monkeypatch):
+    """A window of the same shape every firing (a chain of knows edges
+    sliding by one): the fixpoint's compacted candidate capacity, forced to
+    two rows, overflows (bit4, 16) in the first firing and doubles; the
+    capacity cache carries it, so no later firing retries, and every firing
+    equals the host R2R."""
+    sized = tfx.DeviceFixpoint._caps
+    monkeypatch.setattr(tfx.DeviceFixpoint, "_caps",
+                        lambda fx, n: dataclasses.replace(sized(fx, n), cand=2))
+    host, dev = _pair(tr2r.SimpleR2R, tr2r.DeviceR2R, seed_triple=False)
+    edge = [WindowTriple(f"http://ex/p{i}", "http://ex/knows", f"http://ex/p{i + 1}")
+            for i in range(24)]
+    retried, caps = [], []
+    for firing in range(8):
+        for r in (host, dev):
+            if firing:
+                r.remove(edge[firing - 1])
+                r.add(edge[firing + 11])
+            else:
+                for t in edge[:12]:
+                    r.add(t)
+        spans.clear()
+        dd, dh = dev.materialize(), host.materialize()
+        assert sorted(_decode(dev, dd)) == sorted(_decode(host, dh)), firing
+        retried.append(sum(1 for s in spans.spans_snapshot()
+                           if s["name"] == "fixpoint.round" and s["attrs"]["code"] & 16))
+        caps.append(dev._caps_cache.cand)
+    assert retried[0] > 0 and retried[1:] == [0] * 7
+    assert caps[0] > 2 and caps == [caps[0]] * 8
 
 
 def test_unsupported_rules_take_the_host_closure():

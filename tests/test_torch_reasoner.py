@@ -14,6 +14,8 @@ fixpoint on the same corpora.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -286,20 +288,27 @@ def test_fixpoint_matches_jax(name):
     jr = CORPORA[name]()
     pr = carry(jr)
     jf, tf = jfx.DeviceFixpoint(jr), tfx.DeviceFixpoint(pr)
+    s, p, o = jr.facts.columns()
+    n0 = len(s)
+    caps = jf._caps(n0)
+    jpad = jf.infer_padded(*(jnp.asarray(c) for c in (s, p, o)), jnp.int32(n0), caps)
+    # the reference has no compacted candidate capacity: the parity runs
+    # give the port's the candidate blocks' static total at the reference's
+    # converged capacities, which no round can overflow
+    cand = tfx._block_rows(tf.rules, jpad[4].delta, jpad[4].join)
+    sized = tf._caps
+    tf._caps = lambda n: dataclasses.replace(sized(n), cand=cand)
 
-    # one run at the default capacities: columns, count, rounds, code
+    # one run at the default capacities and that uncapped candidate
+    # buffer: columns, count, rounds, code
     jout = [np.asarray(x) for x in jf.run_raw()]
     tout = tf.run_raw()
     assert tout[3:] == (int(jout[3]), int(jout[4]), int(jout[5]))
     assert_columns(jout[:3], tout[:3], tout[3])
 
     # the capacity-retry entry: padded outputs and converged capacities
-    s, p, o = jr.facts.columns()
-    n0 = len(s)
-    caps = jf._caps(n0)
-    jpad = jf.infer_padded(*(jnp.asarray(c) for c in (s, p, o)), jnp.int32(n0), caps)
     tpad = tf.infer_padded(*(torch.from_numpy(c.astype(np.int64)) for c in (s, p, o)), n0,
-                           tfx._Caps(*caps_tuple(caps)))
+                           tfx._Caps(*caps_tuple(caps), cand))
     assert tpad[3] == int(jpad[3])
     assert caps_tuple(tpad[4]) == caps_tuple(jpad[4])
     assert_columns(jpad[:3], tpad[:3], tpad[3])
@@ -311,6 +320,14 @@ def test_fixpoint_matches_jax(name):
     host = carry(CORPORA[name]())
     host.infer_new_facts_semi_naive()
     assert_same_facts(pr, host)
+    # the port's own capacities, its candidate capacity included: the same
+    # facts, and the same rounds wherever neither side retried
+    default = carry(CORPORA[name]())
+    dfx = tfx.DeviceFixpoint(default)
+    assert dfx.infer() == jd
+    assert_same_facts(default, host)
+    if dfx.converged_caps == sized(n0) and caps_tuple(jf.converged_caps) == caps_tuple(caps):
+        assert dfx.last_rounds == jf.last_rounds
 
 
 def test_capacity_doubling_matches_jax():
@@ -323,9 +340,13 @@ def test_capacity_doubling_matches_jax():
     jpad = jfx.DeviceFixpoint(jr).infer_padded(
         *(jnp.asarray(c) for c in (s, p, o)), jnp.int32(len(s)), caps
     )
-    tpad = tfx.DeviceFixpoint(pr).infer_padded(
+    tf = tfx.DeviceFixpoint(pr)
+    # a candidate capacity no round overflows: the blocks' static total at
+    # the reference's converged capacities
+    cand = tfx._block_rows(tf.rules, jpad[4].delta, jpad[4].join)
+    tpad = tf.infer_padded(
         *(torch.from_numpy(c.astype(np.int64)) for c in (s, p, o)), len(s),
-        tfx._Caps(128, 128, 128),
+        tfx._Caps(128, 128, 128, cand),
     )
     assert tpad[3] == int(jpad[3]) == 24 * 25 // 2
     assert caps_tuple(tpad[4]) == caps_tuple(jpad[4])
