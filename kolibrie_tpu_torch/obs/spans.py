@@ -39,9 +39,10 @@ Spans the port records beyond the table of ``docs/OBSERVABILITY.md``
 - ``query.decode`` (query/executor): ``format_results``' ID→string
   decode and row sort; ``rows``, ``path`` (``quoted`` or ``display``).
 - ``device.wait`` (optimizer/device_engine, plan_interp, mqo;
-  reasoner/device_fixpoint): the host blocked on one device→host
-  readback; ``site``, the fetch audit's site name, or ``fixpoint.round``
-  for a fixpoint round's one sync, which the audit does not count.
+  reasoner/device_fixpoint, device_provenance): the host blocked on one
+  device→host readback; ``site``, the fetch audit's site name, or
+  ``fixpoint.round`` / ``provenance.round`` for a fixpoint round's one
+  sync, which the audit does not count.
 - ``reasoner.fixpoint`` (reasoner/device_fixpoint): as in the reference
   (``facts``), around ``infer`` and ``infer_chunked``, with ``rounds`` and
   ``derived`` on exit.
@@ -58,6 +59,30 @@ Spans the port records beyond the table of ``docs/OBSERVABILITY.md``
   inside its span, whose ``code`` holds the bits of every attempt and
   whose row counts sum them.
 - ``fixpoint.writeback``: ``materialize_to_host``; ``rows``.
+- ``rsp.cw.cycle`` (rsp/engine): one cross-window SDS+ cycle, from the
+  SDS build to the consumer's last row; ``ts`` (the cycle's time), and
+  ``mode`` (``incremental`` or ``naive``, what AUTO picked), ``facts``
+  (the SDS+ facts in the windows' buckets) and ``rows`` (the rows R2S fed)
+  on exit.  Each cycle also counts in
+  ``kolibrie_rsp_cross_window_cycles_total{mode}``.
+- ``rsp.cw.sds``: the SDS built from the latest window contents;
+  ``triples`` (window triples) and ``new`` (those not in the last cycle's
+  memo).
+- ``sds.reason`` (reasoner/cross_window): ``incremental_sds_plus`` or
+  ``naive_sds_plus`` whole; ``mode``, ``facts`` (the closure's input
+  facts), ``d_new`` (its first delta: the facts new or with a later expiry,
+  every fact in naive mode), ``derived``.
+- ``rsp.cw.query`` (rsp/engine): the per-window buckets (in incremental
+  mode, from the carried state), their databases, plans and decoding;
+  ``rows`` (over every window's result).
+- ``provenance.fixpoint`` (reasoner/device_provenance): the device tagged
+  fixpoint once it takes the program (upload, rounds, write-back);
+  ``facts``, ``semiring``, and ``rounds`` and ``attempts`` (the rounds that
+  overflowed and were retried) on exit.
+- ``provenance.round``: one dispatch of the tagged fixpoint; ``kind``
+  (``round``, ``round_addmult``, ``naf``, ``naf_addmult``), ``delta_rows``,
+  and ``code`` (the overflow bits) on exit.  Its one scalar readback is a
+  ``device.wait`` with ``site=provenance.round``.
 
 Copy of ``kolibrie_tpu/obs/spans.py`` for the PyTorch port, its imports
 rewritten.

@@ -34,6 +34,7 @@ from kolibrie_tpu_torch.backend import DeviceLike
 from kolibrie_tpu_torch.core.dictionary import Dictionary
 from kolibrie_tpu_torch.core.rule import Rule
 from kolibrie_tpu_torch.core.triple import Triple
+from kolibrie_tpu_torch.obs.spans import span as _obs_span
 from kolibrie_tpu_torch.reasoner.provenance import ExpirationProvenance
 from kolibrie_tpu_torch.reasoner.provenance_seminaive import (
     semi_naive_with_initial_tags_and_delta,
@@ -275,15 +276,19 @@ def naive_sds_plus(
     device: DeviceLike = None,
 ) -> Dict[str, List[Triple]]:
     """Full SDS+ recomputation (cross_window_naive.rs:20-43)."""
-    s, p, o, _exp = translate_sds_to_arrays(sds, dictionary, current_time)
-    reasoner = Reasoner(dictionary, device=device)
-    if len(s):
-        reasoner.facts.add_batch(s, p, o)
-    for rule in rules:
-        reasoner.add_rule(rule)
-    reasoner.infer_new_facts_semi_naive()
-    all_facts = [Triple(*k) for k in reasoner.facts.triples_set()]
-    return translate_datalog_back(all_facts, dictionary, sds)
+    with _obs_span("sds.reason", mode="naive") as sp:
+        s, p, o, _exp = translate_sds_to_arrays(sds, dictionary, current_time)
+        reasoner = Reasoner(dictionary, device=device)
+        if len(s):
+            reasoner.facts.add_batch(s, p, o)
+        for rule in rules:
+            reasoner.add_rule(rule)
+        n0 = len(reasoner.facts)
+        reasoner.infer_new_facts_semi_naive()
+        all_facts = [Triple(*k) for k in reasoner.facts.triples_set()]
+        if sp is not None:
+            sp.attrs.update(facts=n0, d_new=n0, derived=len(all_facts) - n0)
+        return translate_datalog_back(all_facts, dictionary, sds)
 
 
 class SdsPlusState(dict):
@@ -403,76 +408,80 @@ def incremental_sds_plus(
     UPDATE volume plus one C-speed state carry — the asymmetry that makes
     incremental beat naive at low update ratios.
     """
-    t = np.uint64(current_time)
-    cs, cp, co, cexp = translate_sds_to_arrays(
-        sds_current, dictionary, current_time
-    )
-    os_, op_, oo_, oexp = _state_arrays(sds_plus_old)
-    alive = oexp > t
-    os_, op_, oo_, oexp = os_[alive], op_[alive], oo_[alive], oexp[alive]
-
-    # D_new: current facts absent from D_old or with improved expiry
-    found, old_e = _lookup_expiry(os_, op_, oo_, oexp, cs, cp, co)
-    is_new = ~found | (cexp > old_e)
-    ds, dp, do_, dexp = cs[is_new], cp[is_new], co[is_new], cexp[is_new]
-
-    reasoner = Reasoner(dictionary, device=device)
-    if len(os_) or len(ds):
-        reasoner.facts.add_batch(
-            np.concatenate([os_, ds]),
-            np.concatenate([op_, dp]),
-            np.concatenate([oo_, do_]),
+    with _obs_span("sds.reason", mode="incremental") as sp:
+        t = np.uint64(current_time)
+        cs, cp, co, cexp = translate_sds_to_arrays(
+            sds_current, dictionary, current_time
         )
-    for rule in rules:
-        reasoner.add_rule(rule)
+        os_, op_, oo_, oexp = _state_arrays(sds_plus_old)
+        alive = oexp > t
+        os_, op_, oo_, oexp = os_[alive], op_[alive], oo_[alive], oexp[alive]
 
-    prov = ExpirationProvenance()
-    prior_maps = list(sds_plus_old.values())
-    overlay = _OverlayTags(prior_maps)
-    initial_tags = TagStore(prov)
-    initial_tags.tags = overlay
-    # seed ONLY the update set (D_old reads go through the fallback)
-    for ks, kp, ko, e in zip(
-        ds.tolist(), dp.tolist(), do_.tolist(), dexp.tolist()
-    ):
-        key = (ks, kp, ko)
-        old = overlay.get(key)
-        overlay[key] = e if old is None else max(old, e)
+        # D_new: current facts absent from D_old or with improved expiry
+        found, old_e = _lookup_expiry(os_, op_, oo_, oexp, cs, cp, co)
+        is_new = ~found | (cexp > old_e)
+        ds, dp, do_, dexp = cs[is_new], cp[is_new], co[is_new], cexp[is_new]
 
-    delta = set(zip(ds.tolist(), dp.tolist(), do_.tolist()))
-    semi_naive_with_initial_tags_and_delta(
-        reasoner, prov, initial_tags, delta
-    )  # effects land in `overlay` (initial_tags.tags)
+        reasoner = Reasoner(dictionary, device=device)
+        if len(os_) or len(ds):
+            reasoner.facts.add_batch(
+                np.concatenate([os_, ds]),
+                np.concatenate([op_, dp]),
+                np.concatenate([oo_, do_]),
+            )
+        for rule in rules:
+            reasoner.add_rule(rule)
 
-    # result = carried prior state (expired pruned) + this cycle's overlay
-    router = _PredicateRouter(dictionary, all_component_iris(sds_current))
-    result = SdsPlusState()
-    for comp, fact_map in sds_plus_old.items():
-        carried = {k: e for k, e in fact_map.items() if e > current_time}
-        if carried:
-            result[comp] = carried
-    # ROUTED overlay entries only, so the columnar mirror stays an exact
-    # mirror of the dict state (unroutable intermediates are dropped from
-    # both, as in the reference)
-    routed: List[Tuple[Tuple[int, int, int], int]] = []
-    for key, expiry in overlay.items():
-        hit = router.route(key[1])
-        if hit is not None:
-            result.setdefault(hit[0], {})[key] = expiry
-            routed.append((key, expiry))
-    touched_s = np.empty(len(routed), dtype=np.uint32)
-    touched_p = np.empty(len(routed), dtype=np.uint32)
-    touched_o = np.empty(len(routed), dtype=np.uint32)
-    touched_e = np.empty(len(routed), dtype=np.uint64)
-    for i, (key, expiry) in enumerate(routed):
-        touched_s[i], touched_p[i], touched_o[i] = key
-        touched_e[i] = expiry
-    # columnar mirror for the NEXT cycle: old-alive rows superseded by the
-    # overlay where both exist (overlay expiries are >= by construction)
-    result.arrays = _dedup_max_expiry(
-        np.concatenate([os_, touched_s]),
-        np.concatenate([op_, touched_p]),
-        np.concatenate([oo_, touched_o]),
-        np.concatenate([oexp, touched_e]),
-    )
-    return result
+        prov = ExpirationProvenance()
+        prior_maps = list(sds_plus_old.values())
+        overlay = _OverlayTags(prior_maps)
+        initial_tags = TagStore(prov)
+        initial_tags.tags = overlay
+        # seed ONLY the update set (D_old reads go through the fallback)
+        for ks, kp, ko, e in zip(
+            ds.tolist(), dp.tolist(), do_.tolist(), dexp.tolist()
+        ):
+            key = (ks, kp, ko)
+            old = overlay.get(key)
+            overlay[key] = e if old is None else max(old, e)
+
+        delta = set(zip(ds.tolist(), dp.tolist(), do_.tolist()))
+        n0 = len(reasoner.facts)
+        semi_naive_with_initial_tags_and_delta(
+            reasoner, prov, initial_tags, delta
+        )  # effects land in `overlay` (initial_tags.tags)
+        if sp is not None:
+            sp.attrs.update(facts=n0, d_new=len(ds), derived=len(reasoner.facts) - n0)
+
+        # result = carried prior state (expired pruned) + this cycle's overlay
+        router = _PredicateRouter(dictionary, all_component_iris(sds_current))
+        result = SdsPlusState()
+        for comp, fact_map in sds_plus_old.items():
+            carried = {k: e for k, e in fact_map.items() if e > current_time}
+            if carried:
+                result[comp] = carried
+        # ROUTED overlay entries only, so the columnar mirror stays an exact
+        # mirror of the dict state (unroutable intermediates are dropped from
+        # both, as in the reference)
+        routed: List[Tuple[Tuple[int, int, int], int]] = []
+        for key, expiry in overlay.items():
+            hit = router.route(key[1])
+            if hit is not None:
+                result.setdefault(hit[0], {})[key] = expiry
+                routed.append((key, expiry))
+        touched_s = np.empty(len(routed), dtype=np.uint32)
+        touched_p = np.empty(len(routed), dtype=np.uint32)
+        touched_o = np.empty(len(routed), dtype=np.uint32)
+        touched_e = np.empty(len(routed), dtype=np.uint64)
+        for i, (key, expiry) in enumerate(routed):
+            touched_s[i], touched_p[i], touched_o[i] = key
+            touched_e[i] = expiry
+        # columnar mirror for the NEXT cycle: old-alive rows superseded by the
+        # overlay where both exist (overlay expiries are >= by construction)
+        result.arrays = _dedup_max_expiry(
+            np.concatenate([os_, touched_s]),
+            np.concatenate([op_, touched_p]),
+            np.concatenate([oo_, touched_o]),
+            np.concatenate([oexp, touched_e]),
+        )
+        return result

@@ -59,7 +59,10 @@ Port notes:
   ``RuntimeError`` instead of returning None.  None is returned only where
   the reference declines a program (:func:`infer_provenance_device`).
 - ``LAST_RUN`` records the last run's dispatches ``(kind, caps, code)``,
-  committed rounds and overflow attempts (the EXPLAIN-style counters).
+  committed rounds and overflow attempts (the EXPLAIN-style counters);
+  the spans carry the same: ``provenance.fixpoint`` around a run the
+  device takes, ``provenance.round`` a dispatch, whose one readback is a
+  ``device.wait`` (``site=provenance.round``).
 
 Parity: ``datalog/.../provenance_semi_naive.rs:26-34,134-197`` (delta
 re-inclusion of improved tags, per-derivation ⊗, ⊕ merge, zero-pruning) —
@@ -74,6 +77,7 @@ import numpy as np
 import torch
 
 from kolibrie_tpu_torch.backend import _LPAD, _RPAD, SENT, pack2
+from kolibrie_tpu_torch.obs.spans import span as _obs_span
 from kolibrie_tpu_torch.ops import round_cap as _round_cap
 from kolibrie_tpu_torch.ops.device_join import pack_key_multi
 from kolibrie_tpu_torch.ops.kernels import ranked_merge_join_indices
@@ -119,13 +123,22 @@ ROUND_LIMIT = 10_000
 LAST_RUN: Dict[str, object] = {"dispatches": [], "rounds": 0, "attempts": 0, "caps": None}
 
 
-def _record(kind: str, caps: tuple, code: int) -> None:
+def _dispatch(kind: str, caps: tuple, delta_rows: int, fn, code_at: int):
+    """Runs one dispatch ``fn()`` under a ``provenance.round`` span and
+    records it in ``LAST_RUN``; returns its output and its overflow code,
+    ``out[code_at]`` (the dispatch's one host read)."""
+    with _obs_span("provenance.round", kind=kind, delta_rows=delta_rows) as sp:
+        out = fn()
+        code = out[code_at]
+        if sp is not None:
+            sp.attrs["code"] = code
     LAST_RUN["dispatches"].append((kind, caps, code))
     LAST_RUN["caps"] = caps
     if code:
         LAST_RUN["attempts"] += 1
     else:
         LAST_RUN["rounds"] += 1
+    return out, code
 
 
 def supports(provenance) -> bool:
@@ -428,7 +441,8 @@ def _commit_parts(
     nds, ndp, ndo = (_scatter_drop(zeros_d, ddest, u) for u in (us, up, uo))
     ndt = _scatter_drop(torch.zeros(D, dtype=torch.float64, device=dev), ddest, ut)
 
-    code, n_next, n_d = torch.stack([overflow, n_facts_next, n_dnext]).tolist()  # the one sync
+    with _obs_span("device.wait", site="provenance.round"):
+        code, n_next, n_d = torch.stack([overflow, n_facts_next, n_dnext]).tolist()  # the one sync
     if code:
         return fs, fp, fo, ftag, n_facts, ds, dp, do, dtag, 0, code
     return nfs, nfp, nfo, nftag, n_next, nds, ndp, ndo, ndt, n_d, 0
@@ -793,8 +807,9 @@ def _addmult_commit(
     n_dnext = dmask.sum()
     ddest = torch.where(dmask, torch.cumsum(dmask, 0) - 1, D)
     ndidx = _scatter_drop(zeros_d, ddest, row_idx)
-    code, n_next, n_d, *more = torch.stack(
-        [overflow, n_facts_next, n_dnext, *extra]).tolist()  # the one sync
+    with _obs_span("device.wait", site="provenance.round"):
+        code, n_next, n_d, *more = torch.stack(
+            [overflow, n_facts_next, n_dnext, *extra]).tolist()  # the one sync
     return (nfs, nfp, nfo, nftag, n_next, ndidx, n_d, code, *more)
 
 
@@ -955,74 +970,81 @@ def infer_provenance_device(
     n0 = len(s)
     if n0 == 0:
         return None
-    cols = [torch.from_numpy(c.astype(np.int64)).to(dev) for c in (s, p, o)]
-    tags0, one_enc = _seed_tag_arrays(provenance, tag_store, cols)
-    masks = tuple(torch.from_numpy(m).to(dev) for m in bank.materialize()) or (
-        torch.zeros(1, dtype=torch.bool, device=dev),
-    )
-    # delta tags are EFFECTIVE values (absent resolves to one())
-    eff0 = np.where(np.isnan(tags0), one_enc, tags0)
-    if initial_delta is not None:
-        rows = _fact_rows(cols, sorted(initial_delta))
-        didx = np.unique(rows[rows < n0])
-        if didx.size == 0:
+    with _obs_span("provenance.fixpoint", facts=n0, semiring=provenance.name) as sp:
+        try:
+            cols = [torch.from_numpy(c.astype(np.int64)).to(dev) for c in (s, p, o)]
+            tags0, one_enc = _seed_tag_arrays(provenance, tag_store, cols)
+            masks = tuple(torch.from_numpy(m).to(dev) for m in bank.materialize()) or (
+                torch.zeros(1, dtype=torch.bool, device=dev),
+            )
+            # delta tags are EFFECTIVE values (absent resolves to one())
+            eff0 = np.where(np.isnan(tags0), one_enc, tags0)
+            if initial_delta is not None:
+                rows = _fact_rows(cols, sorted(initial_delta))
+                didx = np.unique(rows[rows < n0])
+                if didx.size == 0:
+                    return {}
+            else:
+                didx = np.arange(n0, dtype=np.int64)
+            ftag0 = torch.from_numpy(tags0).to(dev)
+
+            if provenance.name == "addmult":
+                return _drive_addmult(
+                    reasoner, provenance, tag_store, pos_rules, naf_rules, masks, cols, ftag0,
+                    tags0, torch.from_numpy(didx).to(dev), n0, max_attempts,
+                )
+
+            didx_t = torch.from_numpy(didx).to(dev)
+            nd0 = len(didx)
+            st = {
+                "fs": cols[0], "fp": cols[1], "fo": cols[2], "ftag": ftag0, "n_facts": n0,
+                "ds": cols[0][didx_t], "dp": cols[1][didx_t], "do": cols[2][didx_t],
+                "dt": torch.from_numpy(eff0).to(dev)[didx_t], "n_delta": nd0,
+            }
+            gtags_pos = torch.from_numpy(_guard_tag_array(pos_rules, provenance, tag_store)).to(dev)
+
+            def round_fn(caps, st):
+                out, code = _dispatch(
+                    "round", (caps.fact, caps.delta, caps.join), st["n_delta"],
+                    lambda: _prov_round(
+                        pos_rules, caps, st["fs"], st["fp"], st["fo"], st["ftag"],
+                        st["n_facts"], st["ds"], st["dp"], st["do"], st["dt"], st["n_delta"],
+                        one_enc, masks, gtags_pos,
+                    ), 10)
+                if code != 0:
+                    return None, code
+                return dict(zip(("fs", "fp", "fo", "ftag", "n_facts", "ds", "dp", "do", "dt",
+                                 "n_delta"), out[:10])), 0
+
+            def pad_delta(st, D):
+                for k in ("ds", "dp", "do", "dt"):
+                    st[k] = _pad(st[k], D)
+                return st
+
+            if pos_rules:
+                st = _run_overflow_protocol(round_fn, st, n0, nd0, pad_delta, max_attempts)
+            else:
+                # no positive stratum: pad buffers (the protocol's job) and treat
+                # the initial delta as drained — NAF evaluates vs ALL facts
+                F = _round_cap(4 * n0, 2048)
+                D = _round_cap(max(2 * nd0, n0 // 2, 1024))
+                for k in ("fs", "fp", "fo", "ftag"):
+                    st[k] = _pad(st[k], F)
+                st = pad_delta(st, D)
+                st["n_delta"] = 0
+            if naf_rules:
+                st = _drive_naf(
+                    naf_rules, st, round_fn if pos_rules else None, pad_delta, provenance,
+                    one_enc, masks,
+                    torch.from_numpy(_guard_tag_array(naf_rules, provenance, tag_store)).to(dev),
+                    n0, nd0, max_attempts, sequential=naf_sequential,
+                )
+            _write_back(reasoner, provenance, tag_store, st["fs"], st["fp"], st["fo"], st["ftag"],
+                        st["n_facts"], n0, tags0)
             return {}
-    else:
-        didx = np.arange(n0, dtype=np.int64)
-    ftag0 = torch.from_numpy(tags0).to(dev)
-
-    if provenance.name == "addmult":
-        return _drive_addmult(
-            reasoner, provenance, tag_store, pos_rules, naf_rules, masks, cols, ftag0,
-            tags0, torch.from_numpy(didx).to(dev), n0, max_attempts,
-        )
-
-    didx_t = torch.from_numpy(didx).to(dev)
-    nd0 = len(didx)
-    st = {
-        "fs": cols[0], "fp": cols[1], "fo": cols[2], "ftag": ftag0, "n_facts": n0,
-        "ds": cols[0][didx_t], "dp": cols[1][didx_t], "do": cols[2][didx_t],
-        "dt": torch.from_numpy(eff0).to(dev)[didx_t], "n_delta": nd0,
-    }
-    gtags_pos = torch.from_numpy(_guard_tag_array(pos_rules, provenance, tag_store)).to(dev)
-
-    def round_fn(caps, st):
-        out = _prov_round(
-            pos_rules, caps, st["fs"], st["fp"], st["fo"], st["ftag"], st["n_facts"],
-            st["ds"], st["dp"], st["do"], st["dt"], st["n_delta"], one_enc, masks, gtags_pos,
-        )
-        code = out[10]  # the round's one host read
-        _record("round", (caps.fact, caps.delta, caps.join), code)
-        if code != 0:
-            return None, code
-        return dict(zip(("fs", "fp", "fo", "ftag", "n_facts", "ds", "dp", "do", "dt",
-                         "n_delta"), out[:10])), 0
-
-    def pad_delta(st, D):
-        for k in ("ds", "dp", "do", "dt"):
-            st[k] = _pad(st[k], D)
-        return st
-
-    if pos_rules:
-        st = _run_overflow_protocol(round_fn, st, n0, nd0, pad_delta, max_attempts)
-    else:
-        # no positive stratum: pad buffers (the protocol's job) and treat
-        # the initial delta as drained — NAF evaluates vs ALL facts
-        F = _round_cap(4 * n0, 2048)
-        D = _round_cap(max(2 * nd0, n0 // 2, 1024))
-        for k in ("fs", "fp", "fo", "ftag"):
-            st[k] = _pad(st[k], F)
-        st = pad_delta(st, D)
-        st["n_delta"] = 0
-    if naf_rules:
-        st = _drive_naf(
-            naf_rules, st, round_fn if pos_rules else None, pad_delta, provenance, one_enc,
-            masks, torch.from_numpy(_guard_tag_array(naf_rules, provenance, tag_store)).to(dev),
-            n0, nd0, max_attempts, sequential=naf_sequential,
-        )
-    _write_back(reasoner, provenance, tag_store, st["fs"], st["fp"], st["fo"], st["ftag"],
-                st["n_facts"], n0, tags0)
-    return {}
+        finally:
+            if sp is not None:
+                sp.attrs.update(rounds=LAST_RUN["rounds"], attempts=LAST_RUN["attempts"])
 
 
 def _pad(x: torch.Tensor, cap: int) -> torch.Tensor:
@@ -1126,13 +1148,13 @@ def _drive_naf(naf_rules, st, round_fn, pad_delta, provenance, one_enc, masks, g
                     # commit — its appended facts are recovered from the
                     # fact buffers at pass end
                     continue
-                out = _prov_naf_pass(
-                    grules, _Caps(F, D, J), st["fs"], st["fp"], st["fo"], st["ftag"],
-                    st["n_facts"], st["ds"], st["dp"], st["do"], st["dt"], one_enc, masks,
-                    neg_kind, ggtags,
-                )
-                code = out[10]  # one host read per dispatch
-                _record("naf", (F, D, J), code)
+                out, code = _dispatch(
+                    "naf", (F, D, J), st["n_delta"],
+                    lambda: _prov_naf_pass(
+                        grules, _Caps(F, D, J), st["fs"], st["fp"], st["fo"], st["ftag"],
+                        st["n_facts"], st["ds"], st["dp"], st["do"], st["dt"], one_enc, masks,
+                        neg_kind, ggtags,
+                    ), 10)
                 if code != 0:
                     attempts += 1
                     if attempts > max_attempts:
@@ -1209,12 +1231,12 @@ def _drive_naf_addmult(naf_rules, st, round_fn, pad_delta, provenance, tag_store
                     cols, ns = seen[gi]
                 if cols and cols[0].shape[0] != scaps[gi]:
                     cols = tuple(_pad(c, scaps[gi]) for c in cols)
-                out = _prov_naf_pass_addmult(
-                    rule, _Caps(F, D, J), scaps[gi], st["fs"], st["fp"], st["fo"], st["ftag"],
-                    st["n_facts"], cols, ns, masks, float(gtags[gi]),
-                )
-                code = out[9]  # one host read per dispatch
-                _record("naf_addmult", (F, D, J, scaps[gi]), code)
+                out, code = _dispatch(
+                    "naf_addmult", (F, D, J, scaps[gi]), st["n_delta"],
+                    lambda: _prov_naf_pass_addmult(
+                        rule, _Caps(F, D, J), scaps[gi], st["fs"], st["fp"], st["fo"],
+                        st["ftag"], st["n_facts"], cols, ns, masks, float(gtags[gi]),
+                    ), 9)
                 if code != 0:
                     attempts += 1
                     if attempts > max_attempts:
@@ -1282,12 +1304,12 @@ def _drive_addmult(reasoner, provenance, tag_store, pos_rules, naf_rules, masks,
     gtags = torch.from_numpy(_guard_tag_array(pos_rules, provenance, tag_store)).to(dev)
 
     def round_fn(caps, st):
-        out = _prov_round_addmult(
-            pos_rules, caps, st["fs"], st["fp"], st["fo"], st["ftag"], st["n_facts"],
-            st["didx"], st["n_delta"], masks, gtags,
-        )
-        code = out[7]  # the round's one host read
-        _record("round_addmult", (caps.fact, caps.delta, caps.join), code)
+        out, code = _dispatch(
+            "round_addmult", (caps.fact, caps.delta, caps.join), st["n_delta"],
+            lambda: _prov_round_addmult(
+                pos_rules, caps, st["fs"], st["fp"], st["fo"], st["ftag"], st["n_facts"],
+                st["didx"], st["n_delta"], masks, gtags,
+            ), 7)
         if code != 0:
             return None, code
         return dict(zip(("fs", "fp", "fo", "ftag", "n_facts", "didx", "n_delta"), out[:7])), 0

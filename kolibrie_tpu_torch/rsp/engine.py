@@ -26,6 +26,8 @@ cycles build their reasoners and per-window databases on the same device.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import queue
 import threading
 import time
@@ -79,6 +81,12 @@ _CLOSE_TO_EMIT = _obs_metrics.histogram(
     "kolibrie_rsp_close_to_emit_seconds",
     "wall time from the earliest pending window firing to result emission",
 )
+# mode is "incremental" or "naive" (AUTO counts the mode it picked)
+_CW_CYCLES = _obs_metrics.counter(
+    "kolibrie_rsp_cross_window_cycles_total",
+    "cross-window SDS+ cycles emitted, by the reasoning mode that ran",
+    labels=("mode",),
+)
 
 ResultRow = Tuple[Tuple[str, str], ...]  # sorted (var, value) pairs
 
@@ -104,6 +112,27 @@ class CrossWindowReasoningMode:
 # 1.4-2x at 1-2% updates and broke even at 10%).  PERF.md records the
 # port's sweep on the H100 (chip_profile.py::profile_churn_sweep).
 _AUTO_MAX_CHURN = 0.08
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Pauses Python's cyclic garbage collector for one cross-window cycle.
+
+    A cycle builds the SDS, the reasoner's state and one database per
+    window, tens of thousands of container objects at a few windows'
+    content, and reference counting frees nearly all of them when the
+    cycle ends.  With the collector running, the build promotes them into
+    the old generation and sets off two or three full passes a cycle over
+    the whole process heap, torch's included.  The switch is
+    process-wide; the collector resumes as the cycle found it."""
+    if not gc.isenabled():
+        yield
+        return
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 @dataclass
@@ -615,9 +644,9 @@ class RSPEngine:
 
     def _emit(
         self, last_materialized: Dict[str, List[Dict[str, str]]], ts: int
-    ) -> None:
+    ) -> int:
         """Join windows (+static), apply R2S, feed the consumer
-        (emit_results, rsp_engine.rs:864-897)."""
+        (emit_results, rsp_engine.rs:864-897); returns the rows fed."""
         joined = join_window_results(last_materialized)
         if self.static_query is not None:
             static = self._static_bindings()
@@ -625,17 +654,21 @@ class RSPEngine:
         outputs: List[ResultRow] = [
             tuple(sorted(b.items())) for b in joined
         ]
-        for row in self.r2s.eval(outputs, ts):
+        fed = self.r2s.eval(outputs, ts)
+        for row in fed:
             self.consumer(row)
         with self._cw_lock:
             pending = list(self._fire_t0.values())
             self._fire_t0.clear()
         if pending:
             _CLOSE_TO_EMIT.observe(time.perf_counter() - min(pending))
+        return len(fed)
 
     # ---------------------------------------------------------- cross-window
 
-    def _build_sds(self) -> Sds:
+    def _build_sds(self) -> Tuple[Sds, int, int]:
+        """The SDS of the latest window contents, the count of its window
+        triples, and how many of them were not in the last cycle's memo."""
         sds = Sds()
         dec = self.dictionary.decode
         enc = self.dictionary.encode
@@ -647,6 +680,7 @@ class RSPEngine:
         # window size.  Rebuilt from live entries each cycle -> bounded.
         old_cache = getattr(self, "_wt_cache", {})
         new_cache = {}
+        fresh = 0
         annot = getattr(self, "_annot_pred_cache", {})
         # kolint: ignore[KL311] per-cycle memo confined to the emission path: _build_sds runs only on the coordinator (or the sole pusher in callback mode), never both in one engine
         self._annot_pred_cache = annot
@@ -656,6 +690,7 @@ class RSPEngine:
                 key = (cfg.window_iri, t, event_time)
                 wt = old_cache.get(key)
                 if wt is None:
+                    fresh += 1
                     s = dec(t.subject)
                     p = dec(t.predicate)
                     o = dec(t.object)
@@ -694,7 +729,7 @@ class RSPEngine:
         ]
         if static_triples:
             sds.static_graphs["urn:kolibrie:static:"] = static_triples
-        return sds
+        return sds, len(new_cache), fresh
 
     def _auto_mode(self, sds) -> str:
         """Per-cycle mode choice for AUTO: measure churn (window content
@@ -731,44 +766,57 @@ class RSPEngine:
     def _emit_cross_window(self, ts: int) -> None:
         """SDS+ cycle + per-window plans over derived buckets
         (emit_cross_window_results, rsp_engine.rs:1059-1112)."""
-        sds = self._build_sds()
-        mode = self.cross_window_mode
-        if mode == CrossWindowReasoningMode.AUTO:
-            mode = self._auto_mode(sds)
-        if mode == CrossWindowReasoningMode.INCREMENTAL:
-            # checkpoint_state() snapshots _sds_plus_state under _cw_lock
-            # from pusher threads; read and publish under the same lock so
-            # a checkpoint never sees a half-written cycle
-            with self._cw_lock:
-                prev_state = self._sds_plus_state
-            new_state = incremental_sds_plus(
-                self.cross_window_rules, sds, prev_state, self.dictionary, ts,
-                device=self.r2r.db.device,
-            )
-            with self._cw_lock:
-                self._sds_plus_state = new_state
-            buckets = sds_with_expiry_to_external(
-                new_state, self.dictionary, all_component_iris(sds)
-            )
-        else:
-            with self._cw_lock:
-                self._sds_plus_state = {}  # stale for later incremental cycles
-            buckets = naive_sds_plus(
-                self.cross_window_rules, sds, self.dictionary, ts,
-                device=self.r2r.db.device,
-            )
-        materialized: Dict[str, List[Dict[str, str]]] = {}
-        for cfg in self.window_configs:
-            db = SparqlDatabase(device=self.r2r.db.device)
-            db.dictionary = self.dictionary
-            db.quoted = self.r2r.db.quoted
-            for t in buckets.get(cfg.window_iri, []):
-                db.add_triple(t)
-            table = eval_select_to_table(db, cfg.query)
-            header = table_header(table, cfg.query)
-            rows = format_results(db, table, cfg.query)
-            materialized[cfg.window_iri] = [dict(zip(header, row)) for row in rows]
-        self._emit(materialized, ts)
+        with _collector_paused(), _obs_span("rsp.cw.cycle", ts=ts) as cycle:
+            with _obs_span("rsp.cw.sds") as sp:
+                sds, n_triples, n_new = self._build_sds()
+                if sp is not None:
+                    sp.attrs.update(triples=n_triples, new=n_new)
+            mode = self.cross_window_mode
+            if mode == CrossWindowReasoningMode.AUTO:
+                mode = self._auto_mode(sds)
+            if cycle is not None:
+                cycle.attrs["mode"] = mode
+            if mode == CrossWindowReasoningMode.INCREMENTAL:
+                # checkpoint_state() snapshots _sds_plus_state under _cw_lock
+                # from pusher threads; read and publish under the same lock so
+                # a checkpoint never sees a half-written cycle
+                with self._cw_lock:
+                    prev_state = self._sds_plus_state
+                new_state = incremental_sds_plus(
+                    self.cross_window_rules, sds, prev_state, self.dictionary, ts,
+                    device=self.r2r.db.device,
+                )
+                with self._cw_lock:
+                    self._sds_plus_state = new_state
+            else:
+                with self._cw_lock:
+                    self._sds_plus_state = {}  # stale for later incremental cycles
+                buckets = naive_sds_plus(
+                    self.cross_window_rules, sds, self.dictionary, ts,
+                    device=self.r2r.db.device,
+                )
+            with _obs_span("rsp.cw.query") as query:
+                if mode == CrossWindowReasoningMode.INCREMENTAL:
+                    buckets = sds_with_expiry_to_external(
+                        new_state, self.dictionary, all_component_iris(sds)
+                    )
+                materialized: Dict[str, List[Dict[str, str]]] = {}
+                for cfg in self.window_configs:
+                    db = SparqlDatabase(device=self.r2r.db.device)
+                    db.dictionary = self.dictionary
+                    db.quoted = self.r2r.db.quoted
+                    for t in buckets.get(cfg.window_iri, []):
+                        db.add_triple(t)
+                    table = eval_select_to_table(db, cfg.query)
+                    header = table_header(table, cfg.query)
+                    rows = format_results(db, table, cfg.query)
+                    materialized[cfg.window_iri] = [dict(zip(header, row)) for row in rows]
+                if query is not None:
+                    query.attrs["rows"] = sum(len(v) for v in materialized.values())
+            emitted = self._emit(materialized, ts)
+            if cycle is not None:
+                cycle.attrs.update(facts=sum(len(b) for b in buckets.values()), rows=emitted)
+        _CW_CYCLES.labels(mode).inc()
 
     # -------------------------------------------------- preemption/restart
 
